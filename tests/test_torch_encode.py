@@ -1,0 +1,198 @@
+"""The port's slice end to end: low-delay P frames at preset 10.
+
+The port's Encoder (device search in PyTorch, on the CPU here) must give
+the JAX package's payload bytes frame for frame on the SVT_HME_PALLAS=1
+route, decode dav1d-exactly to its own recon, never import jax, refuse
+a GPU it does not have, and raise NotImplementedError on the branches it
+does not port yet.
+"""
+
+import inspect
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import svt_av1_psy_tpu.models.fast_intra as ref_fi
+from svt_av1_psy_tpu import api as ref_api
+from svt_av1_psy_tpu.decoder.dav1d import decode_obus
+from svt_av1_psy_tpu_torch.api import Encoder, EncoderConfig, PredStructure
+from svt_av1_psy_tpu_torch.models import fast_intra as port_fi
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT / "tools"))
+from make_test_clip import make_frame  # noqa: E402
+
+LD_CFG = EncoderConfig(enc_mode=10, qp=30, intra_period_length=-1,
+                       pred_structure=PredStructure.LOW_DELAY_B)
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """The suite runs in several worker processes at once: one torch
+    thread per worker keeps them from oversubscribing the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _frames(w, h, n=4, seed=7):
+    rng = np.random.default_rng(seed)
+    return [make_frame(w, h, t, 8, 0.02, rng) for t in range(n)]
+
+
+def _encode(enc, frames):
+    try:
+        return [enc.encode(*f) for f in frames]
+    finally:
+        enc.close()
+
+
+@pytest.fixture
+def pallas_route(monkeypatch):
+    """SVT_HME_PALLAS=1 for both packages; the JAX route is cached at its
+    first call, so clear it before and after."""
+    monkeypatch.setenv("SVT_HME_PALLAS", "1")
+    ref_fi._jitted_hme.cache_clear()
+    yield
+    ref_fi._jitted_hme.cache_clear()
+
+
+@pytest.mark.parametrize("dims", [(176, 144), (352, 288)])
+def test_port_encode_matches_jax(pallas_route, dims):
+    w, h = dims
+    frames = _frames(w, h)
+    want = _encode(ref_api.Encoder(LD_CFG, w, h), frames)
+    got = _encode(Encoder(LD_CFG, w, h, device="cpu"), frames)
+    assert [o.payload for o in got] == [o.payload for o in want]
+    decoded = decode_obus(b"".join(o.payload for o in got))
+    assert len(decoded) == len(got)
+    for d, o in zip(decoded, got):
+        assert np.array_equal(d.y, o.recon_y)
+        assert np.array_equal(d.u, o.recon_u)
+        assert np.array_equal(d.v, o.recon_v)
+
+
+_NO_JAX_ENCODE = r"""
+import importlib.abc
+import sys
+
+attempts = []
+
+
+class BlockJax(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib"):
+            attempts.append(name)
+            raise ImportError(f"jax is blocked in this process: {name}")
+        return None
+
+
+sys.meta_path.insert(0, BlockJax())
+sys.path.insert(0, "tools")
+import numpy as np
+from make_test_clip import make_frame
+from svt_av1_psy_tpu_torch.api import Encoder, EncoderConfig, PredStructure
+
+rng = np.random.default_rng(7)
+cfg = EncoderConfig(enc_mode=10, qp=30, intra_period_length=-1,
+                    pred_structure=PredStructure.LOW_DELAY_B)
+enc = Encoder(cfg, 176, 144, device="cpu")
+sizes = [len(enc.encode(*make_frame(176, 144, t, 8, 0.02, rng)).payload)
+         for t in range(2)]
+enc.close()
+assert all(sizes), sizes
+assert not attempts, attempts
+assert "jax" not in sys.modules
+print("NO_JAX_OK")
+"""
+
+
+def test_port_encode_never_imports_jax():
+    env = dict(os.environ, SVT_HME_PALLAS="1", PYTHONPATH=str(ROOT),
+               OMP_NUM_THREADS="1")
+    r = subprocess.run([sys.executable, "-c", _NO_JAX_ENCODE], cwd=ROOT,
+                       env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "NO_JAX_OK" in r.stdout
+
+
+def test_cuda_without_gpu_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        Encoder(LD_CFG, 176, 144, device="cuda")
+
+
+@pytest.mark.parametrize("change", [
+    {"pred_structure": PredStructure.RANDOM_ACCESS, "hierarchical_levels": 5},
+    {"enable_restoration_filtering": 1},
+    {"enc_mode": 6},                 # LR on by default at preset <= 7
+    {"enc_mode": 3},
+    {"screen_content_mode": 1},
+], ids=["random_access", "lr", "preset6", "preset3", "scm1"])
+def test_unported_routes_raise(change):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Encoder(LD_CFG.replace(**change), 176, 144, device="cpu")
+
+
+def test_hme_search2_route_raises(monkeypatch):
+    monkeypatch.delenv("SVT_HME_PALLAS", raising=False)
+    monkeypatch.delenv("SVT_HME_1LEVEL", raising=False)
+    frames = _frames(176, 144, n=2)
+    enc = Encoder(LD_CFG, 176, 144, device="cpu")
+    try:
+        enc.encode(*frames[0])                   # key frame: decide only
+        with pytest.raises(NotImplementedError, match="hme_search2"):
+            enc.encode(*frames[1])
+    finally:
+        enc.close()
+
+
+def test_unported_methods_raise():
+    enc = port_fi.FastIntraEncoder(64, 64, qindex=120, device="cpu")
+    y = np.zeros((64, 64), np.uint8)
+    uv = np.zeros((32, 32), np.uint8)
+    for call in (lambda: enc.make_sharded_decide(None),
+                 lambda: enc._encode_key_sc(y, uv, uv),
+                 lambda: enc._lr_apply_and_search(y, uv, uv, 120, None,
+                                                  None)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            call()
+
+
+def _outside_device_block(method):
+    """Source lines of _encode_p outside its device-search block, blank
+    lines and the reference's jax imports dropped."""
+    lines = [ln for ln in inspect.getsource(method).split("\n")
+             if ln.strip() and ln.strip() not in ("import jax",
+                                                  "import jax.numpy as jnp")]
+    i0 = next(i for i, ln in enumerate(lines)
+              if 'with _tstage("device_search"):' in ln)
+    i1 = next(i for i, ln in enumerate(lines)
+              if "# global motion: ROTZOOM" in ln)
+    return lines[:i0] + lines[i1:]
+
+
+def test_encode_p_copy_has_not_drifted():
+    ref = _outside_device_block(ref_fi.FastIntraEncoder._encode_p)
+    port = _outside_device_block(port_fi.FastIntraEncoder._encode_p)
+    assert len(ref) > 400
+    assert port == ref
+
+
+@pytest.mark.cuda
+def test_cuda_encode_matches_cpu(pallas_route):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from svt_av1_psy_tpu_torch.kernels.hme import hme_search_kernel
+    frames = _frames(176, 144, n=3)
+    want = _encode(Encoder(LD_CFG, 176, 144, device="cpu"), frames)
+    hme_search_kernel.launches = 0
+    got = _encode(Encoder(LD_CFG, 176, 144, device="cuda"), frames)
+    assert hme_search_kernel.launches == len(frames) - 1
+    assert [o.payload for o in got] == [o.payload for o in want]
