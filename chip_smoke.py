@@ -1,11 +1,18 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (svt_av1_psy_tpu_torch) on one GPU.
 
-Drives the port's main path once through its public API: a 1080p 8-bit
-low-delay IPPP encode at preset 10, CRF 30, on "cuda", with the P-frame
-motion search on the K1 route (SVT_HME_PALLAS=1). Before that it builds
-every CUDA kernel of the path from the sources in this checkout and holds
-each against its plain PyTorch version at the shapes the path gives it.
+Drives the port's paths once each through its public API, on "cuda", at
+1080p 8-bit, preset 10, CRF 30:
+  - low delay (IPPP) with the P-frame motion search on the K1 route
+    (SVT_HME_PALLAS=1);
+  - low delay on the default route (the two-level hme_search2);
+  - random access: one key plus one 32-frame mini-GoP (5-level pyramid)
+    with temporal filtering and TPL on, its device search one GoP
+    program (gop_search_tf) per mini-GoP.
+Before that it builds every CUDA kernel from the sources in this checkout
+and holds each against its plain PyTorch version at the shapes the path
+gives it. K1 is the only hand-written kernel; the default route and the
+random-access programs are plain PyTorch.
 
 Phases (each ends in torch.cuda.synchronize(); any failure exits non-zero
 and prints no result):
@@ -14,9 +21,22 @@ and prints no result):
   3. K1 against the plain hme_search on 1088x1920 planes (random,
      shifted + noise, flat where every offset ties): byte-equal, with
      both times (CUDA events, median of several runs);
-  4. the encode on "cuda": K1 must launch once per P frame; fps and the
-     SVT_TRACE stage times;
-  5. the first frames again on "cpu": the payload bytes must be equal.
+  4. the LD encode on the K1 route: K1 must launch once per P frame; fps
+     and the SVT_TRACE stage times;
+  5. its first frames again on "cpu": the payload bytes must be equal;
+  6. the plain programs of the default route and of random access at
+     1088x1920 (hme_search2, hme_sad_tree, tf_filter_device with T = 5,
+     and one gop_search_tf for a 32-frame mini-GoP: 33 frames, 96
+     edges), timed with CUDA events, the GoP program's parts timed
+     alone, and its device busy share (torch.profiler);
+  7. the LD encode on the default route, and the same frames on "cpu":
+     equal payload bytes;
+  8. the RA encode: all 33 frames shown in display order above the PSNR
+     floor; fps and the SVT_TRACE stage times;
+  9. RA at 352x288 (3 levels, 17 frames) on "cuda" and "cpu": equal
+     payload bytes with TF off; with TF on, the count of temporally
+     filtered pixels that differ between the devices, and the largest
+     difference.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 The line before the last is {"kernels": [...]}; the last line is
@@ -40,6 +60,9 @@ W, H = 1920, 1080
 PAD_H, PAD_W = 1088, 1920        # the plane the device search runs on
 N_FRAMES = 8
 N_CPU_FRAMES = 3
+N_DEFAULT_FRAMES = 4             # LD on the default route
+RA_LEVELS, RA_FRAMES = 5, 33     # one key + one 32-frame mini-GoP
+CMP_W, CMP_H, CMP_LEVELS, CMP_FRAMES = 352, 288, 3, 17
 MIN_PSNR_DB = 30.0               # recon sanity floor at CRF 30
 
 
@@ -80,6 +103,72 @@ def hme_pair(np, kind: str, seed: int = 3):
     return src, ref
 
 
+def psnr_check(np, frame_y, rec_y, what: str) -> float:
+    if rec_y.shape != frame_y.shape or rec_y.dtype.kind != "u":
+        fail(f"{what}: recon {rec_y.shape} {rec_y.dtype}")
+    mse = float(np.mean((rec_y.astype(np.float64) - frame_y) ** 2))
+    psnr = 10 * np.log10(255.0 ** 2 / max(mse, 1e-12))
+    if not psnr >= MIN_PSNR_DB:
+        fail(f"{what}: luma PSNR {psnr:.2f} dB < {MIN_PSNR_DB}")
+    return psnr
+
+
+def trace_stages(json, trace_path, first_line: int) -> dict:
+    """{stage: [ms per frame]} of the SVT_TRACE lines from first_line on."""
+    stages = {}
+    lines = trace_path.read_text().splitlines() if trace_path.exists() \
+        else []
+    for line in lines[first_line:]:
+        for name, ms in json.loads(line).items():
+            if name != "frame":
+                stages.setdefault(name, []).append(ms)
+    return stages
+
+
+def trace_lines(trace_path) -> int:
+    return len(trace_path.read_text().splitlines()) \
+        if trace_path.exists() else 0
+
+
+def print_stages(stages: dict) -> None:
+    for name, ms in sorted(stages.items()):
+        print(f"  {name:<20} total {sum(ms):>10.2f} ms  x{len(ms):<3} "
+              f"mean {statistics.mean(ms):.3f} ms")
+
+
+def gop_program_args(np, torch, tb, ys, us, vs, levels, dev):
+    """The arguments RaDriver._dispatch_gop gives gop_search_tf for the
+    mini-GoP after a key at display 0: the stack
+    (base, then the plan in encode order), the edges padded to 3M with
+    (0, 0), the ARF's window (the 4 frames before it) and the depth-1 mid
+    anchor's (+-2, the base's slot masked out)."""
+    from svt_av1_psy_tpu_torch.models.ra import RaDriver
+    M = 1 << levels
+    plan = RaDriver._tpl_plan(None, 0, M)
+    ds = [0] + [p[0] for p in plan]
+    idx = {d: i for i, d in enumerate(ds)}
+    stack = np.stack([ys[d] for d in ds])
+    edges = np.zeros((3 * M, 2), np.int32)
+    n = 0
+    for d, lo, hi, *_ in plan:
+        for r in ([lo] if hi == lo else [lo, hi]) + ([] if 0 in (lo, hi)
+                                                     else [0]):
+            edges[n] = (idx[d], idx[r])
+            n += 1
+
+    def window(ds_, center):
+        order = list(ds_) + [center]
+        return (tb.plane_tensor(np.stack([us[d] for d in order]), dev),
+                tb.plane_tensor(np.stack([vs[d] for d in order]), dev),
+                np.array([idx[d] for d in order], np.int32),
+                torch.ones(len(order)))
+
+    mid = plan[1][0]
+    arf = window(range(M - 4, M), M)
+    mid_w = window((mid - 2, mid - 1, mid + 1, mid + 2), mid)
+    return tb.plane_tensor(stack, dev), edges, n, arf, mid_w
+
+
 def main() -> None:
     try:
         import torch
@@ -104,6 +193,7 @@ def main() -> None:
     from svt_av1_psy_tpu_torch.kernels import build
     from svt_av1_psy_tpu_torch.kernels.hme import hme_search_kernel
     from svt_av1_psy_tpu_torch.ops import torch_backend as tb
+    from svt_av1_psy_tpu_torch.utils.device import HostCopy
 
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
@@ -188,23 +278,11 @@ def main() -> None:
           f"[{card}]")
     print("frame ms: " + ", ".join(f"{1e3 * t:.1f}" for t in frame_s))
     print("bytes: " + ", ".join(str(len(o.payload)) for o in outs))
-    stages = {}
-    for line in trace_path.read_text().splitlines():
-        for name, ms in json.loads(line).items():
-            if name != "frame":
-                stages.setdefault(name, []).append(ms)
-    for name, ms in sorted(stages.items()):
-        print(f"  {name:<20} total {sum(ms):>10.2f} ms  x{len(ms):<3} "
-              f"mean {statistics.mean(ms):.3f} ms")
+    print_stages(trace_stages(json, trace_path, 0))
     for i, (f, o) in enumerate(zip(frames, outs)):
-        rec = o.recon_y
-        if rec.shape != (H, W) or rec.dtype.kind != "u" or not o.payload:
-            fail(f"frame {i}: recon {rec.shape} {rec.dtype}, "
-                 f"{len(o.payload)} payload bytes")
-        mse = float(np.mean((rec.astype(np.float64) - f[0]) ** 2))
-        psnr = 10 * np.log10(255.0 ** 2 / max(mse, 1e-12))
-        if not psnr >= MIN_PSNR_DB:
-            fail(f"frame {i}: luma PSNR {psnr:.2f} dB < {MIN_PSNR_DB}")
+        if not o.payload:
+            fail(f"frame {i}: empty payload")
+        psnr_check(np, f[0], o.recon_y, f"frame {i}")
     print("recon shapes and luma PSNR >= "
           f"{MIN_PSNR_DB} dB: ok")
 
@@ -218,6 +296,172 @@ def main() -> None:
                  f"({len(b.payload)} B)")
     print(f"frames 0..{N_CPU_FRAMES - 1}: byte-equal")
     torch.cuda.synchronize()
+    k1_launches = launches
+
+    # the remaining paths run without a route switch: hme_search2
+    del os.environ["SVT_HME_PALLAS"]
+    ra_frames = [make_frame(W, H, t, 8, 0.02, rng) for t in range(RA_FRAMES)]
+
+    phase("plain programs at 1088x1920 on cuda")
+    from svt_av1_psy_tpu.models.intra_encoder import _pad_to
+    from svt_av1_psy_tpu_torch.ops.torch_backend import EDGE_CHUNK
+    ys = [_pad_to(f[0], PAD_H, PAD_W) for f in ra_frames]
+    us = [_pad_to(f[1], PAD_H // 2, PAD_W // 2) for f in ra_frames]
+    vs = [_pad_to(f[2], PAD_H // 2, PAD_W // 2) for f in ra_frames]
+    stack, edges, n_edges, arf_w, mid_w = gop_program_args(
+        np, torch, tb, ys, us, vs, RA_LEVELS, dev)
+    src, ref = stack[1], stack[0]                 # the ARF against the key
+    mv2, _ = tb.hme_search2(src, ref)
+    win_y = stack[torch.as_tensor(arf_w[2], dtype=torch.long, device=dev)]
+    bias = 700
+
+    def gop_program():
+        return tb.gop_search_tf(stack, edges, bias, arf_w[0], arf_w[1],
+                                arf_w[2], arf_w[3], 1.0, 8, 8, mid_w[0],
+                                mid_w[1], mid_w[2], mid_w[3])
+
+    # the parts of gop_program, each looped as the program loops it
+    e = torch.as_tensor(edges, dtype=torch.long, device=dev)
+    chunks = [(stack[c[:, 0]], stack[c[:, 1]]) for c in e.split(EDGE_CHUNK)]
+    mvs = [tb.hme_search2(a, b)[0] for a, b in chunks]
+    parts = {
+        "decide x33": lambda: [tb.intra_decide_packed(f, bias)
+                               for f in stack],
+        "hme_search2 x96": lambda: [tb.hme_search2(a, b) for a, b in chunks],
+        "hme_sad_tree x96": lambda: [tb.hme_sad_tree(a, b, m)
+                                     for (a, b), m in zip(chunks, mvs)],
+        "tf_filter_device x2": lambda: [tb.tf_filter_device(
+            win_y, arf_w[0], arf_w[1], arf_w[3], 1.0) for _ in (0, 1)],
+    }
+    prog_ms = {
+        "hme_search2": cuda_ms(torch, lambda: tb.hme_search2(src, ref), 5),
+        "hme_sad_tree": cuda_ms(torch,
+                                lambda: tb.hme_sad_tree(src, ref, mv2), 5),
+        "tf_filter_device T=5": cuda_ms(torch, lambda: tb.tf_filter_device(
+            win_y, arf_w[0], arf_w[1], arf_w[3], 1.0), 3),
+        "gop_search_tf M=32": cuda_ms(torch, gop_program, 3),
+    }
+    for name, fn in parts.items():
+        prog_ms[f"  part: {name}"] = cuda_ms(torch, fn, 2)
+    # the global candidates' share of hme_search2: one chunk of 8 edges
+    a, b = chunks[0]
+    for k in ("4", "0"):
+        os.environ["SVT_HME_GLOBK"] = k
+        prog_ms[f"hme_search2 x8 edges, K_GLOB {k}"] = cuda_ms(
+            torch, lambda: tb.hme_search2(a, b), 3)
+    del os.environ["SVT_HME_GLOBK"]
+    for name, ms in prog_ms.items():
+        print(f"{name:<32} {ms:10.3f} ms [{card}]")
+    print(f"GoP program: {len(stack)} frames, {len(edges)} edges "
+          f"({n_edges} of the plan, the rest padding)")
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        HostCopy(gop_program()).numpy()
+        gop_wall_ms = 1e3 * (time.perf_counter() - t0)
+    # device rows only: the aten rows carry their kernels' time as well
+    cuda = torch.autograd.DeviceType.CUDA
+    rows = [r for r in prof.key_averages() if r.device_type == cuda]
+    busy_ms = sum(r.self_device_time_total for r in rows) / 1e3
+    n_kernels = sum(r.count for r in rows)
+    print(f"GoP program under torch.profiler: {n_kernels} kernels and "
+          f"copies, device busy {busy_ms:.3f} ms of {gop_wall_ms:.3f} ms "
+          f"wall, share {busy_ms / gop_wall_ms:.4f} [{card}]")
+    print("largest device rows (self device ms, calls):")
+    for r in sorted(rows, key=lambda r: -r.self_device_time_total)[:8]:
+        print(f"  {r.self_device_time_total / 1e3:10.3f} ms x{r.count:<6} "
+              f"{r.key[:90]}")
+    if busy_ms <= 0:
+        fail("torch.profiler recorded no device time for the GoP program")
+    del stack, win_y, src, ref, mv2, e, chunks, mvs, parts, a, b
+    torch.cuda.empty_cache()
+
+    phase(f"encode {N_DEFAULT_FRAMES} frames 1080p LD on the default route "
+          "(hme_search2) on cuda and on cpu")
+    hme_search_kernel.launches = 0
+    ld = {}
+    for name in ("cuda", "cpu"):
+        enc = Encoder(cfg, W, H, device=name)
+        t0 = time.perf_counter()
+        ld[name] = [enc.encode(*f) for f in frames[:N_DEFAULT_FRAMES]]
+        enc.close()
+        torch.cuda.synchronize()
+        print(f"{name}: {N_DEFAULT_FRAMES} frames in "
+              f"{time.perf_counter() - t0:.3f} s")
+    if hme_search_kernel.launches:
+        fail("K1 launched on the default route")
+    for i, (a, b) in enumerate(zip(ld["cpu"], ld["cuda"])):
+        if a.payload != b.payload:
+            fail(f"default route frame {i}: cpu payload ({len(a.payload)} "
+                 f"B) differs from cuda ({len(b.payload)} B)")
+        psnr_check(np, frames[i][0], b.recon_y, f"default route frame {i}")
+    print(f"frames 0..{N_DEFAULT_FRAMES - 1}: byte-equal, PSNR >= "
+          f"{MIN_PSNR_DB} dB")
+
+    phase(f"encode {RA_FRAMES} frames 1080p RA preset 10 CRF 30, "
+          f"{RA_LEVELS} levels, TF 1, TPL on, on cuda")
+    ra_cfg = EncoderConfig(enc_mode=10, qp=30, intra_period_length=-1,
+                           hierarchical_levels=RA_LEVELS, enable_tf=1,
+                           tf_strength=1, enable_tpl_la=1)
+    first = trace_lines(trace_path)
+    enc = Encoder(ra_cfg, W, H, device="cuda")
+    pkts = []
+    t0 = time.perf_counter()
+    for f in ra_frames:
+        pkts += enc.send_picture(*f)
+    pkts += enc.flush()
+    enc.close()
+    torch.cuda.synchronize()
+    ra_s = time.perf_counter() - t0
+    shown = [p for p in pkts if p.display_idx >= 0]
+    if [p.display_idx for p in shown] != list(range(RA_FRAMES)):
+        fail(f"RA shown order {[p.display_idx for p in shown]}")
+    psnrs = [psnr_check(np, ra_frames[p.display_idx][0], p.recon[0],
+                        f"RA display {p.display_idx}") for p in shown]
+    print(f"{RA_FRAMES} frames in {ra_s:.3f} s: {RA_FRAMES / ra_s:.3f} fps; "
+          f"{len(pkts)} TUs, {sum(len(p.payload) for p in pkts)} bytes; "
+          f"luma PSNR {min(psnrs):.2f}..{max(psnrs):.2f} dB [{card}]")
+    print_stages(trace_stages(json, trace_path, first))
+
+    phase(f"RA {CMP_W}x{CMP_H}, {CMP_LEVELS} levels, {CMP_FRAMES} frames: "
+          "cuda vs cpu")
+    small = [make_frame(CMP_W, CMP_H, t, 8, 0.02, rng)
+             for t in range(CMP_FRAMES)]
+    for tf in (0, 1):
+        c = EncoderConfig(enc_mode=10, qp=30, intra_period_length=-1,
+                          hierarchical_levels=CMP_LEVELS, enable_tf=tf,
+                          tf_strength=1)
+        streams = {}
+        for name in ("cuda", "cpu"):
+            enc = Encoder(c, CMP_W, CMP_H, device=name)
+            streams[name] = [p.payload for f in small
+                             for p in enc.send_picture(*f)]
+            streams[name] += [p.payload for p in enc.flush()]
+            enc.close()
+        same = streams["cuda"] == streams["cpu"]
+        print(f"TF {'on' if tf else 'off'}: payload bytes "
+              f"{'equal' if same else 'differ'}")
+        if not tf and not same:
+            fail("RA with TF off: cuda payload differs from cpu")
+    # the TF planes themselves: the ARF window of that clip, both devices
+    ph, pw = -(-CMP_H // 64) * 64, -(-CMP_W // 64) * 64    # as the encoder
+    sm = [[_pad_to(f[k], ph >> (k > 0), pw >> (k > 0)) for f in small[4:9]]
+          for k in range(3)]
+    cpu_dev = torch.device("cpu")
+    tf_out = {d: tb.tf_filter_device(*(tb.plane_tensor(np.stack(p), d)
+                                       for p in sm), torch.ones(5), 1.0)
+              for d in (dev, cpu_dev)}
+    tf_diff = tf_max = 0
+    for a, b in zip(tf_out[dev], tf_out[cpu_dev]):
+        d = (a.cpu() - b).abs()
+        tf_diff += int((d > 0).sum())
+        tf_max = max(tf_max, int(d.max()))
+    n_px = sum(t.numel() for t in tf_out[cpu_dev])
+    print(f"tf_filter_device cuda vs cpu ({CMP_W}x{CMP_H}, T = 5): "
+          f"{tf_diff} of {n_px} pixels differ, largest difference {tf_max}")
+    torch.cuda.synchronize()
 
     if "jax" in sys.modules:
         fail("jax was imported")
@@ -225,7 +469,7 @@ def main() -> None:
         "name": "hme_sad_scan", "route": "cuda",
         "source": "svt_av1_psy_tpu_torch/csrc/hme_sad_scan.cu",
         "replaces": "svt_av1_psy_tpu/ops/jax_backend.py:689",
-        "launches": launches, "max_abs_err": k1_err,
+        "launches": k1_launches, "max_abs_err": k1_err,
         "ms": k1_ms, "plain_ms": plain_ms}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -7,13 +7,13 @@ commit walks, entropy coding, in-loop filters, bitstream writer and config
 schema — is imported unchanged from the shared JAX-free layers of
 ``svt_av1_psy_tpu``. The package never imports ``jax``.
 
-Slice 1 (this package today): the low-delay P-frame path at the fast
-presets —
+What it covers today: presets 8-13 with loop restoration off, in low
+delay and in random access (temporal filter and TPL on) —
 
     from svt_av1_psy_tpu_torch.api import Encoder, EncoderConfig, PredStructure
     cfg = EncoderConfig(enc_mode=10, qp=30, intra_period_length=-1,
                         pred_structure=PredStructure.LOW_DELAY_B)
-    enc = Encoder(cfg, 1920, 1080, device="cuda")   # SVT_HME_PALLAS=1
+    enc = Encoder(cfg, 1920, 1080, device="cuda")
 
 Unported branches raise ``NotImplementedError`` naming their ROADMAP item.
 """

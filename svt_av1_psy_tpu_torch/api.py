@@ -9,6 +9,14 @@ device search in PyTorch.
         pkt = enc.encode(y, u, v)
     enc.close()
 
+Random access (the default pred_structure, with hierarchical_levels set)
+goes through send_picture / flush as in the reference:
+
+    enc = Encoder(EncoderConfig(enc_mode=10, qp=30, hierarchical_levels=5,
+                                intra_period_length=-1), 1920, 1080,
+                  device="cuda")
+    pkts = [p for f in frames for p in enc.send_picture(*f)] + enc.flush()
+
 encode / send_picture / flush / close are the reference's, unchanged.
 Branches of the reference's routing that the port does not cover yet
 raise NotImplementedError naming their ROADMAP item, before anything is
@@ -21,6 +29,7 @@ from svt_av1_psy_tpu import api
 from svt_av1_psy_tpu.config import (EncoderConfig, PredStructure,
                                     validate_config)
 from svt_av1_psy_tpu_torch.models.fast_intra import FastIntraEncoder
+from svt_av1_psy_tpu_torch.models.ra import RaDriver
 from svt_av1_psy_tpu_torch.utils.device import resolve_device
 
 __all__ = ["Encoder", "EncoderConfig", "PredStructure"]
@@ -38,15 +47,17 @@ def _refuse_unported(cfg: EncoderConfig) -> None:
         raise NotImplementedError(
             "--scm 1 runs the full RD funnel (IntraEncoder, "
             "block_mode_costs): ROADMAP queue 1 item 8")
-    if cfg.hierarchical_levels and api._gop_from_cfg(cfg) != 1 and \
-            cfg.pred_structure == PredStructure.RANDOM_ACCESS:
-        raise NotImplementedError(
-            "random access (RaDriver, gop_search_tf): ROADMAP queue 1 "
-            "items 4-5")
     if cfg.enable_restoration_filtering == 1 or \
             (cfg.enable_restoration_filtering == -1 and preset <= 7):
         raise NotImplementedError(
             "loop restoration (DeviceLrSearch): ROADMAP queue 1 item 6")
+
+
+def _is_random_access(cfg: EncoderConfig) -> bool:
+    """The condition of the reference routing's RaDriver branch
+    (api.Encoder.__init__), for a config that _refuse_unported passed."""
+    return bool(cfg.hierarchical_levels) and api._gop_from_cfg(cfg) != 1 \
+        and cfg.pred_structure == PredStructure.RANDOM_ACCESS
 
 
 class Encoder(api.Encoder):
@@ -59,11 +70,41 @@ class Encoder(api.Encoder):
         checked = cfg.replace(source_width=width, source_height=height)
         if bit_depth is not None:
             checked = checked.replace(encoder_bit_depth=bit_depth)
-        _refuse_unported(validate_config(checked))
-        super().__init__(cfg, width, height, bit_depth)
+        checked = validate_config(checked)
+        _refuse_unported(checked)
+        ra_route = _is_random_access(checked)
+        # the reference routing would build the reference RaDriver, whose
+        # constructor starts a warm-up thread that imports jax: route a
+        # random-access config as flat there, and build the port's RaDriver
+        # below from the RA branch of that routing
+        super().__init__(cfg.replace(hierarchical_levels=0) if ra_route
+                         else cfg, width, height, bit_depth)
         # the reference routing built its FastIntraEncoder, which holds
         # only host state so far; re-class it to the port's subclass so
         # that every option the routing set carries over unchanged
         assert type(self._enc) is FastIntraEncoder.__base__
         self._enc.__class__ = FastIntraEncoder
         self._enc.device = self.device
+        if ra_route:
+            self.cfg = checked
+            self._route_random_access(self._enc, api._gop_from_cfg(checked))
+
+    def _route_random_access(self, enc: FastIntraEncoder, gop: int) -> None:
+        """The RA branch of api.Encoder.__init__ with the port's RaDriver
+        (tests/test_torch_ra_encode.py guards the copy against drift)."""
+        enc.qp_scale_compress_strength = \
+            self.cfg.qp_scale_compress_strength
+        self._ra = RaDriver(
+            enc, gop_levels=min(self.cfg.hierarchical_levels, 5),
+            keyint=0 if gop == 0 else gop,
+            tf_strength=(self.cfg.tf_strength
+                         if self.cfg.enable_tf else 0),
+            tf_adaptive=self.cfg.enable_tf == 2,
+            # dynamic mini-GoP follows content analysis (ref
+            # Docs/Appendix-Dynamic-Mini-GoP)
+            dynamic_gop=bool(self.cfg.scene_change_detection))
+        # TPL r0/beta per-frame q from the GoP dependency flow (ref
+        # src_ops_process.c:1784 tpl_mc_flow -> rc_process.c:873 CRF
+        # qindex from r0)
+        if self.cfg.enable_tpl_la:
+            self._ra.tpl_strength = 1.0

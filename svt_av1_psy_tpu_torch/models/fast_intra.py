@@ -3,18 +3,19 @@
 FastIntraEncoder here subclasses svt_av1_psy_tpu.models.fast_intra.
 FastIntraEncoder and overrides only the methods that call JAX: the
 intra decision stage (_decide_dispatch, _decide_finish, prefetch_decide)
-and the low-delay P frame (_encode_p). Everything else — the native C
-commit walks, entropy coding, in-loop filters, DPB and CDF state — is the
-JAX package's host code, unchanged.
+and the inter frame (_encode_p, low delay and random access). Everything
+else — the native C commit walks, entropy coding, in-loop filters, DPB
+and CDF state — is the JAX package's host code, unchanged.
 
-_encode_p is a copy of the reference method. Only its device-search
-block (from ``with _tstage("device_search"):`` to the global-motion
-comment) and its first lines (no jax import) differ;
-tests/test_torch_encode.py guards every other line against drift.
+_encode_p is a copy of the reference method. Only the low-delay branch of
+its device-search block (from its ``else:`` to the global-motion comment)
+and its first lines (no jax import) differ; tests/test_torch_encode.py
+guards every other line against drift.
 
 Device work runs on ``self.device``. On CUDA the programs are launched
-asynchronously in stream order and the host waits at the single copy of
-each packed result (``.cpu()``).
+asynchronously in stream order; each packed result comes home through a
+HostCopy (a non_blocking copy into pinned memory plus a CUDA event), which
+the host waits for only where it reads the result.
 """
 
 from __future__ import annotations
@@ -30,11 +31,12 @@ from svt_av1_psy_tpu.models.intra_encoder import EncodedFrame, _pad_to
 from svt_av1_psy_tpu.ops.quant import ac_q
 from svt_av1_psy_tpu_torch.kernels.hme import hme_search_kernel
 from svt_av1_psy_tpu_torch.ops.torch_backend import (hme2_unpack,
+                                                     hme_search2,
                                                      intra_decide_packed,
                                                      intra_decide_unpack,
                                                      pack_mv_sad,
                                                      plane_tensor)
-from svt_av1_psy_tpu_torch.utils.device import resolve_device
+from svt_av1_psy_tpu_torch.utils.device import HostCopy, resolve_device
 
 
 def _hme_packed(src, ref):
@@ -44,14 +46,12 @@ def _hme_packed(src, ref):
     The route follows the environment at each call, as
     svt_av1_psy_tpu.models.fast_intra._jitted_hme reads it:
     SVT_HME_PALLAS=1 or SVT_HME_1LEVEL=1 select the single-level search
-    (the K1 kernel on CUDA; its plain version on the CPU). The JAX
-    default, the two-level hme_search2, is not ported yet."""
-    if os.environ.get("SVT_HME_PALLAS") != "1" and \
-            os.environ.get("SVT_HME_1LEVEL") != "1":
-        raise NotImplementedError(
-            "hme_search2: ROADMAP queue 1 item 3 (set SVT_HME_PALLAS=1 "
-            "for the ported single-level search)")
-    return pack_mv_sad(*hme_search_kernel(src, ref))
+    (the K1 kernel on CUDA; its plain version on the CPU); by default the
+    two-level hme_search2 runs."""
+    if os.environ.get("SVT_HME_PALLAS") == "1" or \
+            os.environ.get("SVT_HME_1LEVEL") == "1":
+        return pack_mv_sad(*hme_search_kernel(src, ref))
+    return pack_mv_sad(*hme_search2(src, ref))
 
 
 class FastIntraEncoder(fast_intra.FastIntraEncoder):
@@ -78,16 +78,19 @@ class FastIntraEncoder(fast_intra.FastIntraEncoder):
             "item 6")
 
     # --- device search stage ---------------------------------------------
-    def _decide_dispatch(self, yp: np.ndarray):
-        """Launch the decision program on the device (asynchronous on
-        CUDA): returns the packed uint8 result tensor, no host sync."""
+    def _decide_dispatch(self, yp: np.ndarray) -> HostCopy:
+        """Launch the decision program on the device and start the copy
+        of its packed uint8 result home; no host sync."""
         bias = int(8 * ac_q(self.qindex, self.bd))
-        return intra_decide_packed(plane_tensor(yp, self.device), bias,
-                                   self.bd, self.min_block)
+        return HostCopy(intra_decide_packed(plane_tensor(yp, self.device),
+                                            bias, self.bd, self.min_block))
 
     def _decide_finish(self, out):
+        """Maps of one packed decide buffer: a HostCopy from
+        _decide_dispatch, or a numpy row of the GoP program's buffer (the
+        RA walk, svt_av1_psy_tpu/models/ra.py _walk_gop)."""
         s64, s32, s16, m64, m32, m16, m8 = intra_decide_unpack(
-            out.cpu().numpy(), (self.pah, self.paw))
+            np.asarray(out), (self.pah, self.paw))
         # defensive clamp: a corrupted transfer must never reach the C
         # engine as an out-of-range symbol
         maps = {}
@@ -177,33 +180,39 @@ class FastIntraEncoder(fast_intra.FastIntraEncoder):
             ref3_slot = None
         with _tstage("device_search"):
             if pre is not None:
-                raise NotImplementedError(
-                    "GoP-batched device search (gop_search): ROADMAP "
-                    "queue 1 item 5")
-            # launch every device program first (in stream order on
-            # CUDA), THEN copy the packed results home
-            if ra is not None:
-                hme_ref = self._dpb[ra["ref_slot"]][0]
+                # GoP-batched device search (ops/jax_backend.gop_search):
+                # the RA driver computed decide maps + every edge's HME in
+                # one dispatch at GoP start — nothing to wait for here
+                split, modes = pre["decide"]
+                mv16 = pre["mv16"]
+                if ref2_slot is not None:
+                    mv16b = pre.get("mv16b")
             else:
-                hme_ref = self._ref_y
-            yp_dev = plane_tensor(yp, self.device)
-            hme_dev = _hme_packed(
-                yp_dev, plane_tensor(hme_ref[:self.pah, :self.paw],
-                                     self.device))
-            hme2_dev = None
-            if ref2_slot is not None:
-                hme2_ref = self._dpb[ref2_slot][0]
-                hme2_dev = _hme_packed(
-                    yp_dev, plane_tensor(hme2_ref[:self.pah, :self.paw],
-                                         self.device))
-            split, modes = self._take_decide(y, yp)
-            n16r, n16c = self.pah // 16, self.paw // 16
-            mv16, _sad16 = hme2_unpack(hme_dev.cpu().numpy(), n16r, n16c)
-            mv16 = np.clip(mv16, -127, 127).astype(np.int16)
-            self._ld_sad16 = _sad16
-            if hme2_dev is not None:
-                mv16b, _s2 = hme2_unpack(hme2_dev.cpu().numpy(), n16r, n16c)
-                mv16b = np.clip(mv16b, -127, 127).astype(np.int16)
+                # launch every device program and start its copy home
+                # first (in stream order on CUDA), THEN wait for the
+                # results
+                if ra is not None:
+                    hme_ref = self._dpb[ra["ref_slot"]][0]
+                else:
+                    hme_ref = self._ref_y
+                yp_dev = plane_tensor(yp, self.device)
+                hme_dev = HostCopy(_hme_packed(
+                    yp_dev, plane_tensor(hme_ref[:self.pah, :self.paw],
+                                         self.device)))
+                hme2_dev = None
+                if ref2_slot is not None:
+                    hme2_ref = self._dpb[ref2_slot][0]
+                    hme2_dev = HostCopy(_hme_packed(
+                        yp_dev, plane_tensor(hme2_ref[:self.pah, :self.paw],
+                                             self.device)))
+                split, modes = self._take_decide(y, yp)
+                n16r, n16c = self.pah // 16, self.paw // 16
+                mv16, _sad16 = hme2_unpack(hme_dev.numpy(), n16r, n16c)
+                mv16 = np.clip(mv16, -127, 127).astype(np.int16)
+                self._ld_sad16 = _sad16
+                if hme2_dev is not None:
+                    mv16b, _s2 = hme2_unpack(hme2_dev.numpy(), n16r, n16c)
+                    mv16b = np.clip(mv16b, -127, 127).astype(np.int16)
 
         # global motion: ROTZOOM (LSQ over the device HME field; pan +
         # zoom/rotation content) with robust-translation fallback

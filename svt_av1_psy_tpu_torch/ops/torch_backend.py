@@ -1,9 +1,12 @@
-"""PyTorch device search programs: intra decision and full-pel ME.
+"""PyTorch device search programs: intra decision, motion search, the
+temporal filter and the GoP program.
 
 The port of the device programs of svt_av1_psy_tpu/ops/jax_backend.py that
-the low-delay P-frame path runs. Every function takes tensors on one
-device (CPU or CUDA) and computes with the same int32 integer math as the
-JAX function it names, so the outputs are equal byte for byte. The numpy
+the low-delay and random-access paths run. Every function takes tensors on
+one device (CPU or CUDA) and computes with the same int32 integer math as
+the JAX function it names, so the outputs are equal byte for byte; the
+float32 temporal filter follows the reference's order of operations and
+is held to it within a stated bound (tests/test_torch_gop.py). The numpy
 unpackers are copied here so that the port never imports jax_backend
 (which imports jax at module level).
 
@@ -15,6 +18,7 @@ same numpy sources by block_tables(), once per (size, device).
 from __future__ import annotations
 
 import functools
+import os
 
 import numpy as np
 import torch
@@ -318,18 +322,19 @@ def hme2_unpack(buf, n16r, n16c):
 
 
 def _half_res(plane: torch.Tensor) -> torch.Tensor:
-    return (plane[0::2, 0::2] + plane[0::2, 1::2] + plane[1::2, 0::2] +
-            plane[1::2, 1::2] + 2) >> 2
+    """Rounded 2x2 mean over the last two dims."""
+    return (plane[..., 0::2, 0::2] + plane[..., 0::2, 1::2] +
+            plane[..., 1::2, 0::2] + plane[..., 1::2, 1::2] + 2) >> 2
 
 
 def _edge_pad(plane: torch.Tensor, r: int) -> torch.Tensor:
-    """Edge-replicate padding by r on every side, by clamped gathers (any
-    dtype, any device)."""
-    H, W = plane.shape
+    """Edge-replicate padding of the last two dims by r on every side, by
+    clamped gathers (any dtype, any device)."""
+    H, W = plane.shape[-2:]
     dev = plane.device
     rows = torch.arange(-r, H + r, device=dev).clamp_(0, H - 1)
     cols = torch.arange(-r, W + r, device=dev).clamp_(0, W - 1)
-    return plane[rows[:, None], cols[None, :]]
+    return plane[..., rows[:, None], cols[None, :]]
 
 
 def hme_planes(src: torch.Tensor, ref: torch.Tensor, search_range: int):
@@ -370,3 +375,386 @@ def hme_search(src: torch.Tensor, ref: torch.Tensor,
         best_mv = torch.where(better[..., None], offsets[i], best_mv)
         best_sad = torch.where(better, sad, best_sad)
     return (2 * best_mv).to(torch.int16), best_sad
+
+
+# --- two-level motion search, SAD tree, temporal filter ---------------------
+#
+# The JAX programs below slice windows whose starts are device values (the
+# level-0 seeds, the global MVs, per-block MVs) with lax.dynamic_slice. The
+# port gathers those windows with index arithmetic instead (_windows), so a
+# launch never waits on the host for a start. Every start stays in range
+# by construction (noted at each call): an index past the plane raises,
+# where XLA would clamp it silently.
+
+def _windows(plane: torch.Tensor, y0: torch.Tensor, x0: torch.Tensor,
+             hs: int, ws: int) -> torch.Tensor:
+    """plane (B, Hp, Wp); y0, x0 (B, n) window starts. Returns the
+    (B, n, hs, ws) windows plane[b, y0 + i, x0 + j] as one gather."""
+    dev = plane.device
+    rows = y0[..., None, None] + torch.arange(hs, device=dev)[:, None]
+    cols = x0[..., None, None] + torch.arange(ws, device=dev)[None, :]
+    bidx = torch.arange(plane.shape[0], device=dev).reshape(-1, 1, 1, 1)
+    return plane[bidx, rows, cols]
+
+
+def hme_search2(src: torch.Tensor, ref: torch.Tensor, r0: int = 16,
+                r1: int = 7):
+    """jax_backend.hme_search2: two-level full-pel ME. A quarter-res
+    search over +-r0 seeds a per-block half-res search over +-r1 around
+    2 * seed; then each block also tries +-2 half-res around each of the
+    K_GLOB most-voted seeds of the frame (SVT_HME_GLOBK, default 4, read at
+    each call; 0 turns the global candidates off).
+
+    src, ref: (H, W) integer planes, or a batch (B, H, W) searched edge by
+    edge; H, W multiples of 16. Every running min keeps the first minimum
+    in dy-major scan order, as the reference's strict-< fori loops do.
+    Returns (mv16 (..., H/16, W/16, 2) int16 full-pel, sad16 (..., H/16,
+    W/16) int32 half-res 8x8 SAD)."""
+    single = src.dim() == 2
+    if single:
+        src, ref = src[None], ref[None]
+    i32 = torch.int32
+    sh = _half_res(src.to(i32))
+    rh = _half_res(ref.to(i32))
+    sq, rq = _half_res(sh), _half_res(rh)
+    B, Hh, Wh = sh.shape
+    Hq, Wq = sq.shape[1:]
+    n16r, n16c = Hh // 8, Wh // 8
+    nb = n16r * n16c
+    dev = sh.device
+
+    # level 0: one quarter-res 4x4 block per 16x16 block; each dy step
+    # scores every dx at once through an unfolded view of the padded plane
+    side0 = 2 * r0 + 1
+    xshift0 = _edge_pad(rq, r0).unfold(2, Wq, 1)    # (B, Hq+2r0, side0, Wq)
+    best_sad = torch.full((B, n16r, n16c), 1 << 30, dtype=i32, device=dev)
+    best_mv = torch.zeros((B, n16r, n16c, 2), dtype=i32, device=dev)
+    for i in range(side0):
+        d = (sq[:, :, None, :] - xshift0[:, i:i + Hq]).abs()
+        sad = d.reshape(B, n16r, 4, side0, n16c, 4).sum(dim=(2, 5),
+                                                         dtype=i32)
+        s_min, k = sad.min(dim=2)                   # first minimal dx
+        better = s_min < best_sad
+        cand = torch.stack([torch.full_like(s_min, i - r0),
+                            k.to(i32) - r0], dim=-1)
+        best_mv = torch.where(better[..., None], cand, best_mv)
+        best_sad = torch.where(better, s_min, best_sad)
+    seed = best_mv.reshape(B, nb, 2)
+
+    # global candidates: the K_GLOB most-voted level-0 MVs of each frame
+    k_glob = int(os.environ.get("SVT_HME_GLOBK", "4"))
+    if k_glob:
+        vote = ((seed[..., 0] + r0) * side0 + seed[..., 1] + r0).long()
+        votes = torch.zeros((B, side0 * side0), dtype=i32, device=dev)
+        votes.scatter_add_(1, vote, torch.ones_like(vote, dtype=i32))
+        # lax.top_k order: more votes first, the lower bin first on ties
+        top = torch.sort(votes, dim=1, descending=True,
+                         stable=True).indices[:, :k_glob]
+        glob_mv = torch.stack([top // side0 - r0, top % side0 - r0],
+                              dim=-1).to(i32)       # (B, K_GLOB, 2)
+
+    # level 1: half-res 8x8 blocks, +-r1 around 2 * seed. The window start
+    # by*8 + 2*seed - r1 + P lies in [by*8 + 8, by*8 + 72] of the plane
+    # padded by P = 2*r0 + r1 + 8, whose last window ends at Hh + 86.
+    P = 2 * r0 + r1 + 8
+    rp1 = _edge_pad(rh, P)
+    side1 = 2 * r1 + 1
+    wsz = 8 + 2 * r1
+    bi = torch.arange(nb, device=dev)
+    blks = sh.reshape(B, n16r, 8, n16c, 8).permute(0, 1, 3, 2, 4) \
+        .reshape(B, nb, 8, 8)
+    cy = (bi // n16c) * 8 + 2 * seed[..., 0] - r1 + P
+    cx = (bi % n16c) * 8 + 2 * seed[..., 1] - r1 + P
+    winx = _windows(rp1, cy, cx, wsz, wsz).unfold(3, 8, 1)
+    best1 = torch.full((B, nb), 1 << 30, dtype=i32, device=dev)
+    best_off = torch.zeros((B, nb, 2), dtype=i32, device=dev)
+    for dy in range(side1):
+        # (B, nb, 8 rows, side1 dx, 8 cols) against the source blocks
+        sad = (winx[:, :, dy:dy + 8] - blks[:, :, :, None, :]).abs().sum(
+            dim=(2, 4), dtype=i32)
+        s_min, k = sad.min(dim=2)
+        better = s_min < best1
+        off = torch.stack([torch.full_like(s_min, dy - r1),
+                           k.to(i32) - r1], dim=-1)
+        best_off = torch.where(better[..., None], off, best_off)
+        best1 = torch.where(better, s_min, best1)
+    best_sad = best1.reshape(B, n16r, n16c)
+    mv_h = (2 * seed + best_off).reshape(B, n16r, n16c, 2)
+
+    # global refine: +-R1G half-res around 2 * each global MV, dense over
+    # the plane; a block takes it only on a strictly lower SAD. Window
+    # rows start at 2*g - R1G + P in [13, 81], ending at most at Hh + 85.
+    if k_glob:
+        R1G = 2
+        sideg = 2 * R1G + 1
+        for k in range(k_glob):
+            gy, gx = glob_mv[:, k, 0], glob_mv[:, k, 1]          # (B,)
+            ox0 = 2 * gx - R1G
+            win = _windows(rp1, (2 * gy - R1G + P)[:, None],
+                           (ox0 + P)[:, None], Hh + 2 * R1G,
+                           Wh + 2 * R1G)[:, 0]
+            winx = win.unfold(2, Wh, 1)          # (B, Hh+2R1G, sideg, Wh)
+            for t in range(sideg):
+                d = (sh[:, :, None, :] - winx[:, t:t + Hh]).abs()
+                sad = d.reshape(B, n16r, 8, sideg, n16c, 8).sum(
+                    dim=(2, 5), dtype=i32)
+                s_min, j = sad.min(dim=2)
+                better = s_min < best_sad
+                oy = (2 * gy + t - R1G)[:, None, None].expand_as(s_min)
+                mv2 = torch.stack([oy, ox0[:, None, None] + j.to(i32)],
+                                  dim=-1)
+                mv_h = torch.where(better[..., None], mv2, mv_h)
+                best_sad = torch.where(better, s_min, best_sad)
+    mv16 = (2 * mv_h).to(torch.int16)
+    if single:
+        return mv16[0], best_sad[0]
+    return mv16, best_sad
+
+
+def _gather_sad_nodes(sh: torch.Tensor, rh: torch.Tensor, off: torch.Tensor,
+                      bs: int, pad: int) -> torch.Tensor:
+    """jax_backend._gather_sad_nodes over a batch: the half-res SAD of
+    every bs x bs node of sh (B, Hh, Wh) against rh (edge-padded by pad)
+    shifted by the per-node offsets off (B, nr, nc, 2), clamped to
+    +-pad. Returns (B, nr, nc) int32."""
+    B, nr, nc = off.shape[:3]
+    blocks = sh[:, :nr * bs, :nc * bs].reshape(B, nr, bs, nc, bs) \
+        .permute(0, 1, 3, 2, 4).reshape(B, nr * nc, bs, bs)
+    oy = off[..., 0].reshape(B, -1).clamp(-pad, pad)
+    ox = off[..., 1].reshape(B, -1).clamp(-pad, pad)
+    bi = torch.arange(nr * nc, device=sh.device)
+    wins = _windows(rh, (bi // nc) * bs + oy + pad, (bi % nc) * bs + ox + pad,
+                    bs, bs)
+    return (wins - blocks).abs().sum(dim=(2, 3), dtype=torch.int32) \
+        .reshape(B, nr, nc)
+
+
+def hme_sad_tree(src: torch.Tensor, ref: torch.Tensor, mv16: torch.Tensor):
+    """jax_backend.hme_sad_tree: the fullpel SAD tree above 16x16. Each
+    32x32 (64x64) node takes the least half-res SAD over its four
+    children's MVs; ties keep the first child in the order (0,0), (0,1),
+    (1,0), (1,1). src, ref (H, W) or (B, H, W) with H, W multiples of 64;
+    mv16 (..., H/16, W/16, 2) full-pel. Returns (sad32, sad64) int32."""
+    single = src.dim() == 2
+    if single:
+        src, ref, mv16 = src[None], ref[None], mv16[None]
+    sh = _half_res(src.to(torch.int32))
+    rh = _half_res(ref.to(torch.int32))
+    PAD = 48                                     # >= hme_search2 reach/2
+    rhp = _edge_pad(rh, PAD)
+    mvh = mv16.to(torch.int32) >> 1              # half-res units
+
+    def level(off_child, bs):
+        best = best_off = None
+        for i in (0, 1):
+            for j in (0, 1):
+                off = off_child[:, i::2, j::2]
+                sad = _gather_sad_nodes(sh, rhp, off, bs, PAD)
+                if best is None:
+                    best, best_off = sad, off
+                else:
+                    take = sad < best
+                    best_off = torch.where(take[..., None], off, best_off)
+                    best = torch.minimum(best, sad)
+        return best, best_off
+
+    sad32, mv32 = level(mvh, 16)
+    sad64, _ = level(mv32, 32)
+    if single:
+        return sad32[0], sad64[0]
+    return sad32, sad64
+
+
+def _tf_align(center: torch.Tensor, neigh: torch.Tensor, mv16: torch.Tensor,
+              sub: int):
+    """jax_backend._tf_align: MC copy of neigh (H, W) onto center by the
+    per-16x16 (luma units) full-pel MVs mv16 (n16r, n16c, 2) int32, at
+    1 >> sub scale; the blocks tile the plane (H = n16r * (16 >> sub), as
+    for the padded planes the encoder filters). Returns (aligned (H, W)
+    int32, per-block mean squared error (n16r, n16c) float32)."""
+    bs = 16 >> sub
+    n16r, n16c = mv16.shape[:2]
+    PAD = 96 >> sub          # >= hme_search2 full-pel reach (+-82)
+    oy = (mv16[..., 0] >> sub).clamp(-PAD, PAD).reshape(-1)
+    ox = (mv16[..., 1] >> sub).clamp(-PAD, PAD).reshape(-1)
+    bi = torch.arange(n16r * n16c, device=center.device)
+    wins = _windows(_edge_pad(neigh, PAD)[None],
+                    ((bi // n16c) * bs + oy + PAD)[None],
+                    ((bi % n16c) * bs + ox + PAD)[None], bs, bs)[0]
+    out = wins.reshape(n16r, n16c, bs, bs).permute(0, 2, 1, 3) \
+        .reshape(n16r * bs, n16c * bs)
+    # the integer sum is exact; the reference's float32 sum of squares is
+    # exact too while it stays below 2^24 (always at 8 bit), and / bs^2 is
+    # a power-of-two division
+    d = out - center
+    err = (d * d).reshape(n16r, bs, n16c, bs).sum(
+        dim=(1, 3), dtype=torch.int64).to(torch.float32) / (bs * bs)
+    return out, err
+
+
+def tf_filter_device(win_y: torch.Tensor, win_u: torch.Tensor,
+                     win_v: torch.Tensor, win_mask: torch.Tensor,
+                     strength, bd: int = 8):
+    """jax_backend.tf_filter_device: the temporal filter of the window's
+    LAST frame (the center) against the others. win_y (T, H, W),
+    win_u/win_v (T, Hc, Wc) integer planes; win_mask (T,) float32 (0 = a
+    padding slot); strength: a float or a float32 scalar tensor. Returns
+    the filtered (y, u, v) int32 planes in [0, 2^bd).
+
+    float32 throughout, in the reference's order of operations. The noise
+    variance is jnp.var's two passes (mean, then mean of squared
+    deviations), not a Welford torch.var; divisions by a count use a
+    float32 tensor divisor, since a CUDA division by a Python scalar
+    multiplies by its reciprocal."""
+    T, H, W = win_y.shape
+    i32, f32 = torch.int32, torch.float32
+    dev = win_y.device
+    wy, wu, wv = (w.to(i32) for w in (win_y, win_u, win_v))
+    cy, cu, cv = wy[T - 1], wu[T - 1], wv[T - 1]
+    g = (cy[:, 1:] - cy[:, :-1]).to(f32)
+    n = torch.tensor(g.numel(), dtype=f32, device=dev)
+    gc = g - g.sum() / n
+    sigma2 = torch.clamp_min((gc * gc).sum() / n / 8.0, 4.0)
+    inv = 1.0 / (sigma2 * (1.0 + torch.as_tensor(strength, dtype=f32,
+                                                 device=dev)))
+    mask = torch.as_tensor(win_mask, dtype=f32, device=dev)
+    acc_y, acc_u, acc_v = cy.to(f32), cu.to(f32), cv.to(f32)
+    wt_y = torch.ones((H, W), dtype=f32, device=dev)
+    wt_c = torch.ones(cu.shape, dtype=f32, device=dev)
+    Hc, Wc = cu.shape
+    # the neighbours' searches are independent: one batched call
+    mvs, _ = hme_search2(cy.expand(T - 1, H, W), wy[:T - 1])
+    for i in range(T - 1):
+        mv16 = mvs[i].to(i32)
+        ay, err = _tf_align(cy, wy[i], mv16, 0)
+        w_blk = torch.exp(-err * inv)
+        w_blk = torch.where(err > 16.0 * sigma2, 0.0, w_blk) * mask[i]
+        w_px = w_blk.repeat_interleave(16, 0).repeat_interleave(16, 1)[:H, :W]
+        acc_y += w_px * ay
+        wt_y += w_px
+        au, _ = _tf_align(cu, wu[i], mv16, 1)
+        av, _ = _tf_align(cv, wv[i], mv16, 1)
+        w_pc = w_blk.repeat_interleave(8, 0).repeat_interleave(8, 1)[:Hc, :Wc]
+        acc_u += w_pc * au
+        acc_v += w_pc * av
+        wt_c += w_pc
+    hi = (1 << bd) - 1
+    return tuple(torch.round(a / w).clamp(0, hi).to(i32)
+                 for a, w in ((acc_y, wt_y), (acc_u, wt_c), (acc_v, wt_c)))
+
+
+# --- the GoP program --------------------------------------------------------
+
+EDGE_CHUNK = 8      # prediction edges searched per batched call
+
+
+def gop_search(frames: torch.Tensor, edges, split_bias: int, bd: int = 8,
+               min_block: int = 8) -> torch.Tensor:
+    """jax_backend.gop_search: a mini-GoP's device search as one packed
+    uint8 tensor. frames (F, H, W) integer planes on the device; edges
+    (E, 2) (src_idx, ref_idx) into frames (numpy or tensor; padding edges
+    are computed like any other, as in the reference). The decide runs
+    frame by frame (one frame's predictions are ~0.4 GB at 1080p); the
+    edges go through hme_search2 + hme_sad_tree EDGE_CHUNK at a time.
+    Layout: [int32 bytes of mv (E,n16r,n16c,2) | sad (E,n16r,n16c) |
+    sad32 | sad64 | the F intra_decide_packed buffers]."""
+    dec = torch.stack([intra_decide_packed(f, int(split_bias), bd, min_block)
+                       for f in frames])
+    e = torch.as_tensor(edges, dtype=torch.long).to(frames.device)
+    outs = []
+    for chunk in e.split(EDGE_CHUNK):
+        src, ref = frames[chunk[:, 0]], frames[chunk[:, 1]]
+        mv, sad = hme_search2(src, ref)
+        outs.append((mv, sad) + hme_sad_tree(src, ref, mv))
+    ints = torch.cat([torch.cat(part).to(torch.int32).reshape(-1)
+                      for part in zip(*outs)])
+    return torch.cat([ints.view(torch.uint8), dec.reshape(-1)])
+
+
+def gop_search_tf(frames: torch.Tensor, edges, split_bias: int,
+                  win_u: torch.Tensor, win_v: torch.Tensor, win_idx,
+                  win_mask, strength, bd: int = 8, min_block: int = 8,
+                  win2_u: torch.Tensor = None, win2_v: torch.Tensor = None,
+                  win2_idx=None, win2_mask=None) -> torch.Tensor:
+    """jax_backend.gop_search_tf: gop_search with the anchor temporal
+    filters first. The window lumas are frames[win_idx] (center = the ARF
+    at stack position 1); the filtered plane replaces its stack entry
+    before the search, and so does the depth-1 mid anchor's (position 2)
+    when win2_* is given. Returns [gop_search payload | ARF y u v |
+    (mid y u v)], the planes as uint8 at 8 bit and as the bytes of uint16
+    otherwise."""
+    dev = frames.device
+    fy, fu, fv = tf_filter_device(
+        frames[torch.as_tensor(win_idx, dtype=torch.long).to(dev)],
+        win_u, win_v, win_mask, strength, bd)
+    frames_f = frames.clone()
+    frames_f[1] = fy
+    parts = [fy.reshape(-1), fu.reshape(-1), fv.reshape(-1)]
+    if win2_idx is not None:
+        f2y, f2u, f2v = tf_filter_device(
+            frames[torch.as_tensor(win2_idx, dtype=torch.long).to(dev)],
+            win2_u, win2_v, win2_mask, strength, bd)
+        frames_f[2] = f2y
+        parts += [f2y.reshape(-1), f2u.reshape(-1), f2v.reshape(-1)]
+    main = gop_search(frames_f, edges, split_bias, bd, min_block)
+    planes = torch.cat(parts)
+    if bd == 8:
+        planes_u8 = planes.to(torch.uint8)
+    else:       # pixels < 2^12: the int16 bits are the uint16 bits
+        planes_u8 = planes.to(torch.int16).view(torch.uint8)
+    return torch.cat([main, planes_u8])
+
+
+def gop_search_unpack(buf: np.ndarray, n_frames: int, n_edges: int,
+                      shape):
+    """Host-side unpack of gop_search. shape = padded (H, W).
+
+    Returns (mv (E, n16r, n16c, 2) int16 full-pel,
+             sad (E, n16r, n16c) int32,
+             sad32 (E, n32r, n32c) int32, sad64 (E, n64r, n64c) int32,
+             decide (F, dsz) uint8 rows for intra_decide_unpack)."""
+    H, W = shape
+    n16r, n16c = H // 16, W // 16
+    n16 = n16r * n16c
+    nmv = n_edges * n16 * 2
+    nsad = n_edges * n16
+    n32 = n_edges * (n16 // 4)
+    n64 = n_edges * (n16 // 16)
+    tot = nmv + nsad + n32 + n64
+    ints = np.frombuffer(buf[:4 * tot].tobytes(), np.int32)
+    mv = ints[:nmv].reshape(n_edges, n16r, n16c, 2).astype(np.int16)
+    sad = ints[nmv:nmv + nsad].reshape(n_edges, n16r, n16c).copy()
+    sad32 = ints[nmv + nsad:nmv + nsad + n32].reshape(
+        n_edges, n16r // 2, n16c // 2).copy()
+    sad64 = ints[nmv + nsad + n32:tot].reshape(
+        n_edges, n16r // 4, n16c // 4).copy()
+    dec = buf[4 * tot:].reshape(n_frames, -1)
+    return mv, sad, sad32, sad64, dec
+
+
+def gop_search_tf_unpack(buf: np.ndarray, n_frames: int, n_edges: int,
+                         shape, bd: int = 8, n_filtered: int = 1):
+    """Host-side unpack of gop_search_tf: returns (mv, sad, sad32,
+    sad64, dec, [(fy, fu, fv), ...]) where the first five match
+    gop_search_unpack and each filtered anchor's planes are
+    uint8/uint16 (H, W) / (Hc, Wc). n_filtered: 1 = ARF only,
+    2 = ARF + depth-1 mid."""
+    H, W = shape
+    hc, wc = H // 2, W // 2
+    npl = H * W + 2 * hc * wc
+    nbytes = n_filtered * npl * (1 if bd == 8 else 2)
+    mv, sad, sad32, sad64, dec = gop_search_unpack(
+        buf[:-nbytes], n_frames, n_edges, shape)
+    tail = buf[-nbytes:]
+    if bd == 8:
+        pl = tail
+    else:
+        pl = np.frombuffer(tail.tobytes(), np.uint16)
+    out = []
+    for k in range(n_filtered):
+        o = k * npl
+        fy = pl[o:o + H * W].reshape(H, W)
+        fu = pl[o + H * W:o + H * W + hc * wc].reshape(hc, wc)
+        fv = pl[o + H * W + hc * wc:o + npl].reshape(hc, wc)
+        out.append((fy, fu, fv))
+    return mv, sad, sad32, sad64, dec, out

@@ -2,9 +2,9 @@
 
 The port's Encoder (device search in PyTorch, on the CPU here) must give
 the JAX package's payload bytes frame for frame on the SVT_HME_PALLAS=1
-route, decode dav1d-exactly to its own recon, never import jax, refuse
-a GPU it does not have, and raise NotImplementedError on the branches it
-does not port yet.
+route and on the default (hme_search2) route, decode dav1d-exactly to its
+own recon, never import jax, refuse a GPU it does not have, and raise
+NotImplementedError on the branches it does not port yet.
 """
 
 import inspect
@@ -22,6 +22,7 @@ from svt_av1_psy_tpu import api as ref_api
 from svt_av1_psy_tpu.decoder.dav1d import decode_obus
 from svt_av1_psy_tpu_torch.api import Encoder, EncoderConfig, PredStructure
 from svt_av1_psy_tpu_torch.models import fast_intra as port_fi
+from svt_av1_psy_tpu_torch.models import ra as port_ra
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT / "tools"))
@@ -63,6 +64,16 @@ def pallas_route(monkeypatch):
     ref_fi._jitted_hme.cache_clear()
 
 
+@pytest.fixture
+def default_route(monkeypatch):
+    """No route switch: both packages run hme_search2 (K_GLOB 4)."""
+    for name in ("SVT_HME_PALLAS", "SVT_HME_1LEVEL", "SVT_HME_GLOBK"):
+        monkeypatch.delenv(name, raising=False)
+    ref_fi._jitted_hme.cache_clear()
+    yield
+    ref_fi._jitted_hme.cache_clear()
+
+
 @pytest.mark.parametrize("dims", [(176, 144), (352, 288)])
 def test_port_encode_matches_jax(pallas_route, dims):
     w, h = dims
@@ -99,14 +110,25 @@ import numpy as np
 from make_test_clip import make_frame
 from svt_av1_psy_tpu_torch.api import Encoder, EncoderConfig, PredStructure
 
+import threading
 rng = np.random.default_rng(7)
+frames = [make_frame(176, 144, t, 8, 0.02, rng) for t in range(5)]
+# low delay on the default route (hme_search2)
 cfg = EncoderConfig(enc_mode=10, qp=30, intra_period_length=-1,
                     pred_structure=PredStructure.LOW_DELAY_B)
 enc = Encoder(cfg, 176, 144, device="cpu")
-sizes = [len(enc.encode(*make_frame(176, 144, t, 8, 0.02, rng)).payload)
-         for t in range(2)]
+sizes = [len(enc.encode(*f).payload) for f in frames[:2]]
 enc.close()
 assert all(sizes), sizes
+# random access with TF and TPL on: builds no warm-up thread
+cfg = EncoderConfig(enc_mode=10, qp=30, intra_period_length=-1,
+                    hierarchical_levels=2, enable_tf=1, tf_strength=3)
+enc = Encoder(cfg, 176, 144, device="cpu")
+assert threading.active_count() == 1, threading.enumerate()
+pkts = [p for f in frames for p in enc.send_picture(*f)] + enc.flush()
+enc.close()
+assert sorted(p.display_idx for p in pkts if p.display_idx >= 0) == \
+    list(range(len(frames)))
 assert not attempts, attempts
 assert "jax" not in sys.modules
 print("NO_JAX_OK")
@@ -114,8 +136,9 @@ print("NO_JAX_OK")
 
 
 def test_port_encode_never_imports_jax():
-    env = dict(os.environ, SVT_HME_PALLAS="1", PYTHONPATH=str(ROOT),
-               OMP_NUM_THREADS="1")
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
+    for name in ("SVT_HME_PALLAS", "SVT_HME_1LEVEL", "SVT_HME_GLOBK"):
+        env.pop(name, None)
     r = subprocess.run([sys.executable, "-c", _NO_JAX_ENCODE], cwd=ROOT,
                        env=env, capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]
@@ -128,29 +151,39 @@ def test_cuda_without_gpu_raises(monkeypatch):
         Encoder(LD_CFG, 176, 144, device="cuda")
 
 
-@pytest.mark.parametrize("change", [
-    {"pred_structure": PredStructure.RANDOM_ACCESS, "hierarchical_levels": 5},
-    {"enable_restoration_filtering": 1},
-    {"enc_mode": 6},                 # LR on by default at preset <= 7
-    {"enc_mode": 3},
-    {"screen_content_mode": 1},
+@pytest.mark.parametrize("change, ported", [
+    ({"pred_structure": PredStructure.RANDOM_ACCESS,
+      "hierarchical_levels": 5}, True),
+    ({"enable_restoration_filtering": 1}, False),
+    ({"enc_mode": 6}, False),        # LR on by default at preset <= 7
+    ({"enc_mode": 3}, False),
+    ({"screen_content_mode": 1}, False),
 ], ids=["random_access", "lr", "preset6", "preset3", "scm1"])
-def test_unported_routes_raise(change):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Encoder(LD_CFG.replace(**change), 176, 144, device="cpu")
-
-
-def test_hme_search2_route_raises(monkeypatch):
-    monkeypatch.delenv("SVT_HME_PALLAS", raising=False)
-    monkeypatch.delenv("SVT_HME_1LEVEL", raising=False)
-    frames = _frames(176, 144, n=2)
-    enc = Encoder(LD_CFG, 176, 144, device="cpu")
+def test_unported_routes_raise(change, ported):
+    """The routing: random access builds the port's RaDriver; the routes
+    the port does not cover raise, naming their ROADMAP item."""
+    cfg = LD_CFG.replace(**change)
+    if not ported:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            Encoder(cfg, 176, 144, device="cpu")
+        return
+    enc = Encoder(cfg, 176, 144, device="cpu")
     try:
-        enc.encode(*frames[0])                   # key frame: decide only
-        with pytest.raises(NotImplementedError, match="hme_search2"):
-            enc.encode(*frames[1])
+        assert type(enc._ra) is port_ra.RaDriver
+        assert enc._ra.enc is enc._enc and enc._ra.M == 32
+        assert enc.cfg.hierarchical_levels == 5
+        assert type(enc._enc) is port_fi.FastIntraEncoder
     finally:
         enc.close()
+
+
+def test_hme_search2_route_raises(default_route):
+    """With no route switch the P frames run hme_search2, as in the JAX
+    package: the same payload bytes."""
+    frames = _frames(176, 144)
+    want = _encode(ref_api.Encoder(LD_CFG, 176, 144), frames)
+    got = _encode(Encoder(LD_CFG, 176, 144, device="cpu"), frames)
+    assert [o.payload for o in got] == [o.payload for o in want]
 
 
 def test_unported_methods_raise():
@@ -166,13 +199,15 @@ def test_unported_methods_raise():
 
 
 def _outside_device_block(method):
-    """Source lines of _encode_p outside its device-search block, blank
-    lines and the reference's jax imports dropped."""
+    """Source lines of _encode_p outside the low-delay branch of its
+    device-search block, blank lines and the reference's jax imports
+    dropped."""
     lines = [ln for ln in inspect.getsource(method).split("\n")
              if ln.strip() and ln.strip() not in ("import jax",
                                                   "import jax.numpy as jnp")]
-    i0 = next(i for i, ln in enumerate(lines)
-              if 'with _tstage("device_search"):' in ln)
+    i = next(i for i, ln in enumerate(lines)
+             if 'with _tstage("device_search"):' in ln)
+    i0 = next(j for j in range(i, len(lines)) if lines[j].strip() == "else:")
     i1 = next(i for i, ln in enumerate(lines)
               if "# global motion: ROTZOOM" in ln)
     return lines[:i0] + lines[i1:]
