@@ -2,17 +2,23 @@
 """Smoke run of the PyTorch/CUDA port (svt_av1_psy_tpu_torch) on one GPU.
 
 Drives the port's paths once each through its public API, on "cuda", at
-1080p 8-bit, preset 10, CRF 30:
-  - low delay (IPPP) with the P-frame motion search on the K1 route
-    (SVT_HME_PALLAS=1);
-  - low delay on the default route (the two-level hme_search2);
-  - random access: one key plus one 32-frame mini-GoP (5-level pyramid)
-    with temporal filtering and TPL on, its device search one GoP
-    program (gop_search_tf) per mini-GoP.
+1080p 8-bit, CRF 30:
+  - low delay (IPPP) at preset 10 with the P-frame motion search on the
+    K1 route (SVT_HME_PALLAS=1);
+  - low delay at preset 10 on the default route (the two-level
+    hme_search2);
+  - random access at preset 10: one key plus one 32-frame mini-GoP
+    (5-level pyramid) with temporal filtering and TPL on, its device
+    search one GoP program (gop_search_tf) per mini-GoP;
+  - the north star (bench.py bench_northstar): 64 frames of random access
+    at preset 6, where loop restoration is on and runs its search program
+    (DeviceLrSearch) on every coded frame;
+  - the full-RD route (IntraEncoder, its mode costs in block_mode_costs):
+    a screen-content key at preset 10 and a preset-3 encode.
 Before that it builds every CUDA kernel from the sources in this checkout
 and holds each against its plain PyTorch version at the shapes the path
-gives it. K1 is the only hand-written kernel; the default route and the
-random-access programs are plain PyTorch.
+gives it. K1 is the only hand-written kernel; the other device programs
+are plain PyTorch.
 
 Phases (each ends in torch.cuda.synchronize(); any failure exits non-zero
 and prints no result):
@@ -36,7 +42,23 @@ and prints no result):
   9. RA at 352x288 (3 levels, 17 frames) on "cuda" and "cpu": equal
      payload bytes with TF off; with TF on, the count of temporally
      filtered pixels that differ between the devices, and the largest
-     difference.
+     difference;
+ 10. block_mode_costs on a 1088x1920 plane at sizes 64/32/16/8: cuda
+     equal to cpu, timed;
+ 11. the LR search program on a 1080p recon/source pair from phase 4:
+     its dispatch under torch.cuda.set_sync_debug_mode("error") (a host
+     sync fails the run), taps within 1 of the cpu run's, the counts of
+     differing taps, SSEs and decisions, its time (CUDA events) and the
+     kernels one program launches;
+ 12. the north star: all 64 frames shown in display order above the PSNR
+     floor; fps, the LR programs it launched and the SVT_TRACE stage
+     totals;
+ 13. preset-6 RA at 352x288 (3 levels, 17 frames) on "cuda" and "cpu":
+     equal payload bytes, or LR tap or decision differences that explain
+     the difference; the cuda stream decoded by the repo's own decoder
+     (svt_av1_psy_tpu/decoder) equals its recon;
+ 14. a screen-content key (preset 10, --scm 2 flags it) and a preset-3
+     encode at 176x144: cuda payload bytes equal cpu's.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 The line before the last is {"kernels": [...]}; the last line is
@@ -63,6 +85,8 @@ N_CPU_FRAMES = 3
 N_DEFAULT_FRAMES = 4             # LD on the default route
 RA_LEVELS, RA_FRAMES = 5, 33     # one key + one 32-frame mini-GoP
 CMP_W, CMP_H, CMP_LEVELS, CMP_FRAMES = 352, 288, 3, 17
+NS_FRAMES = 64                   # the north star (bench.py bench_northstar)
+SC_W, SC_H = 176, 144            # the full-RD route's host walk is Python
 MIN_PSNR_DB = 30.0               # recon sanity floor at CRF 30
 
 
@@ -167,6 +191,325 @@ def gop_program_args(np, torch, tb, ys, us, vs, levels, dev):
     arf = window(range(M - 4, M), M)
     mid_w = window((mid - 2, mid - 1, mid + 1, mid + 2), mid)
     return tb.plane_tensor(stack, dev), edges, n, arf, mid_w
+
+
+def text_frame(np, w: int, h: int, t: int):
+    """Text-like screen content (a title bar and short dark strokes on a
+    light page, the bottom quarter scrolling with t): the --scm 2
+    detector flags it."""
+    y = np.full((h, w), 235, np.uint8)
+    y[: h // 8, :] = 64
+    r = np.random.default_rng(5)
+    for _ in range(40):
+        gx = int(r.integers(4, w - 12))
+        gy = int(r.integers(h // 8 + 4, h - 8))
+        y[gy:gy + 2, gx:gx + int(r.integers(2, 9))] = 16
+    sh = h // 4
+    y[h - sh:, :] = np.roll(y[h - sh:, :], -(2 * t) % sh, axis=0)
+    uv = np.full((h // 2, w // 2), 128, np.uint8)
+    return y, uv, uv.copy()
+
+
+def lr_taps(np, buf, grids) -> list:
+    """The six taps (vt + ht) of each plane in a packed LR program
+    result."""
+    out, off = [], 0
+    for urows, ucols, _, _ in grids:
+        out.append(np.asarray(buf)[off:off + 6])
+        off += 6 + 2 * urows * ucols
+    return out
+
+
+class LrLog:
+    """Records the packed result and the decision of every LR search
+    that the encoders of one device finish, in order (a spy on the
+    port's DeviceLrSearch.finish; the encode runs unchanged)."""
+
+    def __init__(self, np, cls):
+        self.cls = cls
+        self.orig = cls.finish
+        self.runs = {}
+        self.name = None
+        log = self
+
+        def finish(inner, token, rdmult):
+            dec = log.orig(inner, token, rdmult)
+            log.runs.setdefault(log.name, []).append(
+                (np.asarray(token).copy(), inner.grids, dec))
+            return dec
+
+        cls.finish = finish
+
+    def close(self) -> None:
+        self.cls.finish = self.orig
+
+
+def lr_diffs(np, a: list, b: list):
+    """(searches compared, taps that differ, largest tap difference,
+    decisions that differ) between two LrLog runs."""
+    n_taps = max_diff = n_dec = 0
+    for (ba, grids, da), (bb, _, db) in zip(a, b):
+        for ta, tb_ in zip(lr_taps(np, ba, grids), lr_taps(np, bb, grids)):
+            n_taps += int((ta != tb_).sum())
+            max_diff = max(max_diff, int(np.abs(ta - tb_).max()))
+        same = (da is None) == (db is None) and (da is None or (
+            da.lr_type == db.lr_type and da.units == db.units))
+        n_dec += not same
+    return min(len(a), len(b)), n_taps, max_diff, n_dec
+
+
+def decisions_summary(dec) -> str:
+    if dec is None:
+        return "none"
+    return "lr_type %s, Wiener units %s" % (
+        dec.lr_type, [sum(u.get("type", 0) for u in p.values())
+                      for p in dec.units])
+
+
+def mode_costs_phase(np, torch, tb, plane, dev, card) -> None:
+    """block_mode_costs at the four sizes of IntraEncoder._decide: cuda
+    equal to cpu, and timed per size and for the four together."""
+    cpu = torch.device("cpu")
+    p_cuda, p_cpu = tb.plane_tensor(plane, dev), tb.plane_tensor(plane, cpu)
+    times = {}
+    for s in (64, 32, 16, 8):
+        got = tb.block_mode_costs(p_cuda, s)
+        want = tb.block_mode_costs(p_cpu, s)
+        for g, w in zip(got, want):
+            if not torch.equal(g.cpu(), w):
+                fail(f"block_mode_costs at size {s}: cuda differs from cpu")
+        times[s] = cuda_ms(torch, lambda: tb.block_mode_costs(p_cuda, s), 10)
+    all4 = cuda_ms(torch, lambda: [tb.block_mode_costs(p_cuda, s)
+                                   for s in (64, 32, 16, 8)], 10)
+    torch.cuda.synchronize()
+    print("cuda == cpu at sizes 64/32/16/8: ok")
+    print("block_mode_costs " + ", ".join(
+        f"{s}: {ms:.4f} ms" for s, ms in times.items()) +
+        f"; all four {all4:.4f} ms per {plane.shape[0]}x{plane.shape[1]} "
+        f"plane [{card}]")
+
+
+def lr_phase(np, torch, src, rec, base_q, dev, card) -> None:
+    """The LR search program on one 1080p recon/source pair: cuda against
+    cpu, the cuda dispatch under sync debug mode "error", timed."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from svt_av1_psy_tpu.ops.quant import ac_q
+    from svt_av1_psy_tpu_torch.models.lr_search import (DeviceLrSearch,
+                                                        _upload)
+    dims = [(W, H)] + [((W + 1) // 2, (H + 1) // 2)] * 2
+    lr = {d: DeviceLrSearch(dims, 8, device=d) for d in (dev, "cpu")}
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tok = lr[dev].dispatch(src, rec)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    want = lr["cpu"].dispatch(src, rec)
+    got_buf, want_buf = np.asarray(tok), np.asarray(want)
+    grids = lr["cpu"].grids
+    n_diff = max_diff = 0
+    off = 0
+    for plane, (ta, tw) in enumerate(zip(lr_taps(np, got_buf, grids),
+                                         lr_taps(np, want_buf, grids))):
+        urows, ucols, _, _ = grids[plane]
+        n = urows * ucols
+        d = int(np.abs(ta - tw).max())
+        n_diff += int((ta != tw).sum())
+        max_diff = max(max_diff, d)
+        sse = [(got_buf[off + 6 + k * n:off + 6 + (k + 1) * n],
+                want_buf[off + 6 + k * n:off + 6 + (k + 1) * n])
+               for k in (0, 1)]
+        rel = [float(np.max(np.abs(g - w) / np.maximum(np.abs(w), 1)))
+               for g, w in sse]
+        print(f"plane {plane}: taps cuda {ta.astype(int).tolist()} cpu "
+              f"{tw.astype(int).tolist()}; {n} units, SSE max relative "
+              f"difference {rel[0]:.3g} (none) {rel[1]:.3g} (Wiener)")
+        off += 6 + 2 * n
+    if max_diff > 1:
+        fail(f"LR taps differ by {max_diff} between cuda and cpu")
+    qstep = ac_q(base_q, 8) / 8.0
+    rdmult = 0.12 * qstep * qstep
+    dec_cuda = lr[dev].finish(tok, rdmult)
+    dec_cpu = lr["cpu"].finish(want, rdmult)
+    print(f"taps differing cuda vs cpu: {n_diff} of 18 (largest "
+          f"difference {max_diff}); decision cuda: "
+          f"{decisions_summary(dec_cuda)}; cpu: {decisions_summary(dec_cpu)}")
+    args = [_upload(np.asarray(p)[:ph, :pw], torch.device(dev))
+            for planes in (rec, src) for p, (pw, ph) in zip(planes, dims)]
+    ms = cuda_ms(torch, lambda: lr[dev]._fn(*args), 10)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        lr[dev]._fn(*args)
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    rows = [r for r in prof.key_averages() if r.device_type == cuda]
+    n_kernels = sum(r.count for r in rows)
+    busy_ms = sum(r.self_device_time_total for r in rows) / 1e3
+    # the host's share of the loop_restoration stage: launching the
+    # search, and applying a decision to the recon (numpy, normative)
+    from svt_av1_psy_tpu.ops.restoration import apply_lr_frame
+    t0 = time.perf_counter()
+    tok = lr[dev].dispatch(src, rec)
+    launch_ms = 1e3 * (time.perf_counter() - t0)
+    np.asarray(tok)
+    apply_ms = 0.0
+    if dec_cpu is not None:
+        planes = [np.array(p, np.uint16) for p in rec]
+        pre = [p.copy() for p in planes]
+        t0 = time.perf_counter()
+        apply_lr_frame(planes, pre, dims, dec_cpu.lr_type,
+                       dec_cpu.unit_size, dec_cpu.units, bd=8)
+        apply_ms = 1e3 * (time.perf_counter() - t0)
+    print(f"LR program {ms:.4f} ms per 1080p frame (device busy "
+          f"{busy_ms:.4f} ms of it under the profiler), {n_kernels} "
+          f"kernels and copies per program; dispatch made no host sync; "
+          f"host: dispatch {launch_ms:.3f} ms, apply_lr_frame "
+          f"{apply_ms:.3f} ms [{card}]")
+
+
+def encode_ra(enc, frames) -> list:
+    try:
+        return [p for f in frames for p in enc.send_picture(*f)] + \
+            enc.flush()
+    finally:
+        enc.close()
+
+
+def north_star_phase(np, torch, json, Encoder, EncoderConfig, make_frame,
+                     lr_cls, trace_path, card) -> None:
+    """bench.py bench_northstar through the port on cuda: 64 frames of
+    1080p preset 6 CRF 30 RA, 5 levels, TF 1, TPL on, LR on."""
+    rng = np.random.default_rng(7)
+    frames = [make_frame(W, H, t, 8, 0.02, rng) for t in range(NS_FRAMES)]
+    cfg = EncoderConfig(enc_mode=6, qp=30, intra_period_length=-1,
+                        hierarchical_levels=5, tf_strength=1,
+                        enable_tpl_la=1)
+    first = trace_lines(trace_path)
+    enc = Encoder(cfg, W, H, device="cuda")
+    if not enc._enc.enable_lr:
+        fail("preset 6 did not turn loop restoration on")
+    log = LrLog(np, lr_cls)
+    log.name = "north star"
+    try:
+        t0 = time.perf_counter()
+        pkts = encode_ra(enc, frames)
+        torch.cuda.synchronize()
+        ns_s = time.perf_counter() - t0
+    finally:
+        log.close()
+    shown = [p for p in pkts if p.display_idx >= 0]
+    if [p.display_idx for p in shown] != list(range(NS_FRAMES)):
+        fail(f"north star shown order {[p.display_idx for p in shown]}")
+    psnrs = [psnr_check(np, frames[p.display_idx][0], p.recon[0],
+                        f"north star display {p.display_idx}")
+             for p in shown]
+    searches = log.runs.get("north star", [])
+    n_wiener = sum(d is not None for _, _, d in searches)
+    if not n_wiener:
+        fail("the north star signalled no loop restoration")
+    print(f"{NS_FRAMES} frames in {ns_s:.3f} s: {NS_FRAMES / ns_s:.3f} fps; "
+          f"{len(pkts)} TUs, {sum(len(p.payload) for p in pkts)} bytes; "
+          f"luma PSNR {min(psnrs):.2f}..{max(psnrs):.2f} dB; LR programs "
+          f"finished {len(searches)}, {n_wiener} of them signalled Wiener "
+          f"[{card}]")
+    print_stages(trace_stages(json, trace_path, first))
+
+
+def preset6_cmp_phase(np, torch, Encoder, EncoderConfig, make_frame,
+                      lr_cls) -> None:
+    """Preset-6 RA at 352x288 on cuda and cpu; the cuda stream through
+    the repo's own decoder."""
+    from svt_av1_psy_tpu.decoder.driver import Decoder
+    rng = np.random.default_rng(11)
+    small = [make_frame(CMP_W, CMP_H, t, 8, 0.02, rng)
+             for t in range(CMP_FRAMES)]
+    cfg = EncoderConfig(enc_mode=6, qp=30, intra_period_length=-1,
+                        hierarchical_levels=CMP_LEVELS, tf_strength=1)
+    log = LrLog(np, lr_cls)
+    pkts = {}
+    try:
+        for name in ("cuda", "cpu"):
+            log.name = name
+            pkts[name] = encode_ra(Encoder(cfg, CMP_W, CMP_H, device=name),
+                                   small)
+    finally:
+        log.close()
+    torch.cuda.synchronize()
+    n, n_taps, max_diff, n_dec = lr_diffs(np, log.runs.get("cuda", []),
+                                          log.runs.get("cpu", []))
+    same = [p.payload for p in pkts["cuda"]] == \
+        [p.payload for p in pkts["cpu"]]
+    print(f"payload bytes {'equal' if same else 'differ'}; LR searches "
+          f"{n}: {n_taps} taps differ (largest {max_diff}), {n_dec} "
+          "decisions differ")
+    if max_diff > 1:
+        fail(f"LR taps differ by {max_diff} between cuda and cpu")
+    if not same and not (n_taps or n_dec):
+        fail("preset-6 RA: cuda payload differs from cpu with equal LR "
+             "searches")
+    dec = Decoder()
+    for p in pkts["cuda"]:
+        dec.decode_temporal_unit(p.payload)
+    shown = [p for p in pkts["cuda"] if p.display_idx >= 0]
+    if len(dec.frames) != CMP_FRAMES or len(shown) != CMP_FRAMES:
+        fail(f"own decoder gave {len(dec.frames)} frames, "
+             f"{len(shown)} shown")
+    for d, p in zip(dec.frames, shown):
+        for plane, rec in zip((d.y, d.u, d.v), p.recon):
+            if not np.array_equal(plane, rec):
+                fail(f"own decoder differs from the recon at display "
+                     f"{p.display_idx}")
+    print(f"cuda stream: {CMP_FRAMES} frames decoded by the repo's decoder, "
+          "equal to the recon")
+
+
+def full_rd_phase(np, torch, Encoder, EncoderConfig, PredStructure,
+                  make_frame) -> None:
+    """The full-RD route on cuda and cpu at 176x144: a screen-content key
+    (preset 10, --scm 2) and a preset-3 encode; equal payload bytes."""
+    from svt_av1_psy_tpu_torch.models.fast_intra import FastIntraEncoder
+    from svt_av1_psy_tpu_torch.models.intra_encoder import IntraEncoder
+    ld = EncoderConfig(enc_mode=10, qp=30, intra_period_length=-1,
+                       pred_structure=PredStructure.LOW_DELAY_B)
+    rng = np.random.default_rng(7)
+    cases = {
+        "screen-content key, preset 10":
+            (ld, [text_frame(np, SC_W, SC_H, t) for t in range(2)]),
+        "preset 3": (ld.replace(enc_mode=3),
+                     [make_frame(SC_W, SC_H, t, 8, 0.02, rng)
+                      for t in range(2)]),
+    }
+    sc_keys = []
+    orig = FastIntraEncoder._encode_key_sc
+
+    def spy(self, *args):
+        sc_keys.append(self.frame_index)
+        return orig(self, *args)
+
+    FastIntraEncoder._encode_key_sc = spy
+    try:
+        for what, (cfg, frames) in cases.items():
+            out = {}
+            for name in ("cuda", "cpu"):
+                enc = Encoder(cfg, SC_W, SC_H, device=name)
+                if cfg.enc_mode < 4 and type(enc._enc) is not IntraEncoder:
+                    fail(f"{what}: routed to {type(enc._enc).__name__}")
+                t0 = time.perf_counter()
+                out[name] = [enc.encode(*f).payload for f in frames]
+                enc.close()
+                torch.cuda.synchronize()
+                print(f"{what} on {name}: {len(frames)} frames in "
+                      f"{time.perf_counter() - t0:.3f} s, "
+                      f"{[len(b) for b in out[name]]} bytes")
+            if out["cuda"] != out["cpu"]:
+                fail(f"{what}: cuda payload differs from cpu")
+    finally:
+        FastIntraEncoder._encode_key_sc = orig
+    if sc_keys != [0, 0]:
+        fail(f"the text key took the screen-content route {sc_keys}")
+    print("cuda == cpu bytes on both; the text key went through "
+          "_encode_key_sc on both devices")
 
 
 def main() -> None:
@@ -462,6 +805,29 @@ def main() -> None:
     print(f"tf_filter_device cuda vs cpu ({CMP_W}x{CMP_H}, T = 5): "
           f"{tf_diff} of {n_px} pixels differ, largest difference {tf_max}")
     torch.cuda.synchronize()
+
+    from svt_av1_psy_tpu_torch.models.lr_search import DeviceLrSearch
+
+    phase("block_mode_costs at 1088x1920: cuda vs cpu")
+    mode_costs_phase(np, torch, tb, ys[0], dev, card)
+
+    phase("LR search program at 1080p: cuda vs cpu")
+    lr_phase(np, torch, frames[1], (outs[1].recon_y, outs[1].recon_u,
+                                    outs[1].recon_v), 120, dev, card)
+
+    phase(f"north star: encode {NS_FRAMES} frames 1080p RA preset 6 CRF 30, "
+          "5 levels, TF 1, TPL on, LR on, on cuda")
+    north_star_phase(np, torch, json, Encoder, EncoderConfig, make_frame,
+                     DeviceLrSearch, trace_path, card)
+
+    phase(f"RA preset 6 {CMP_W}x{CMP_H}, {CMP_LEVELS} levels, {CMP_FRAMES} "
+          "frames: cuda vs cpu, own decoder")
+    preset6_cmp_phase(np, torch, Encoder, EncoderConfig, make_frame,
+                      DeviceLrSearch)
+
+    phase(f"full-RD route at {SC_W}x{SC_H}: cuda vs cpu")
+    full_rd_phase(np, torch, Encoder, EncoderConfig, PredStructure,
+                  make_frame)
 
     if "jax" in sys.modules:
         fail("jax was imported")

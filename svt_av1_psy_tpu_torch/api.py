@@ -17,10 +17,14 @@ goes through send_picture / flush as in the reference:
                   device="cuda")
     pkts = [p for f in frames for p in enc.send_picture(*f)] + enc.flush()
 
+Presets <= 3 and --scm 1 run the full-RD IntraEncoder, as in the
+reference; at the fast presets a key frame that --scm 2 (the default)
+flags as screen content goes through it too. Loop restoration (on by
+default at presets <= 7) runs its search program on the same device.
+
 encode / send_picture / flush / close are the reference's, unchanged.
-Branches of the reference's routing that the port does not cover yet
-raise NotImplementedError naming their ROADMAP item, before anything is
-built.
+Multi-device runs (make_sharded_decide, gop_meshes) raise
+NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -29,34 +33,22 @@ from svt_av1_psy_tpu import api
 from svt_av1_psy_tpu.config import (EncoderConfig, PredStructure,
                                     validate_config)
 from svt_av1_psy_tpu_torch.models.fast_intra import FastIntraEncoder
+from svt_av1_psy_tpu_torch.models.intra_encoder import IntraEncoder
 from svt_av1_psy_tpu_torch.models.ra import RaDriver
 from svt_av1_psy_tpu_torch.utils.device import resolve_device
 
 __all__ = ["Encoder", "EncoderConfig", "PredStructure"]
 
-
-def _refuse_unported(cfg: EncoderConfig) -> None:
-    """Raise NotImplementedError for the routes of api.Encoder.__init__
-    that need device code the port does not have yet."""
-    preset = cfg.enc_mode
-    if preset < 4:
-        raise NotImplementedError(
-            f"preset {preset}: presets <= 3 run the full RD funnel "
-            "(IntraEncoder, block_mode_costs): ROADMAP queue 1 item 8")
-    if cfg.screen_content_mode == 1:
-        raise NotImplementedError(
-            "--scm 1 runs the full RD funnel (IntraEncoder, "
-            "block_mode_costs): ROADMAP queue 1 item 8")
-    if cfg.enable_restoration_filtering == 1 or \
-            (cfg.enable_restoration_filtering == -1 and preset <= 7):
-        raise NotImplementedError(
-            "loop restoration (DeviceLrSearch): ROADMAP queue 1 item 6")
+# the port's subclass of each encoder class the reference routing builds
+_PORT_CLASS = {cls.__base__: cls for cls in (FastIntraEncoder, IntraEncoder)}
 
 
 def _is_random_access(cfg: EncoderConfig) -> bool:
     """The condition of the reference routing's RaDriver branch
-    (api.Encoder.__init__), for a config that _refuse_unported passed."""
-    return bool(cfg.hierarchical_levels) and api._gop_from_cfg(cfg) != 1 \
+    (api.Encoder.__init__): the fast route (preset >= 4, --scm not 1)
+    with a random-access pyramid."""
+    return cfg.enc_mode >= 4 and cfg.screen_content_mode != 1 \
+        and bool(cfg.hierarchical_levels) and api._gop_from_cfg(cfg) != 1 \
         and cfg.pred_structure == PredStructure.RANDOM_ACCESS
 
 
@@ -71,7 +63,6 @@ class Encoder(api.Encoder):
         if bit_depth is not None:
             checked = checked.replace(encoder_bit_depth=bit_depth)
         checked = validate_config(checked)
-        _refuse_unported(checked)
         ra_route = _is_random_access(checked)
         # the reference routing would build the reference RaDriver, whose
         # constructor starts a warm-up thread that imports jax: route a
@@ -79,11 +70,11 @@ class Encoder(api.Encoder):
         # below from the RA branch of that routing
         super().__init__(cfg.replace(hierarchical_levels=0) if ra_route
                          else cfg, width, height, bit_depth)
-        # the reference routing built its FastIntraEncoder, which holds
-        # only host state so far; re-class it to the port's subclass so
-        # that every option the routing set carries over unchanged
-        assert type(self._enc) is FastIntraEncoder.__base__
-        self._enc.__class__ = FastIntraEncoder
+        # the reference routing built its FastIntraEncoder or IntraEncoder,
+        # which hold only host state so far; re-class it to the port's
+        # subclass so that every option the routing set carries over
+        # unchanged
+        self._enc.__class__ = _PORT_CLASS[type(self._enc)]
         self._enc.device = self.device
         if ra_route:
             self.cfg = checked

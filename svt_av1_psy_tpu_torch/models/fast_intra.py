@@ -2,15 +2,20 @@
 
 FastIntraEncoder here subclasses svt_av1_psy_tpu.models.fast_intra.
 FastIntraEncoder and overrides only the methods that call JAX: the
-intra decision stage (_decide_dispatch, _decide_finish, prefetch_decide)
-and the inter frame (_encode_p, low delay and random access). Everything
-else — the native C commit walks, entropy coding, in-loop filters, DPB
-and CDF state — is the JAX package's host code, unchanged.
+intra decision stage (_decide_dispatch, _decide_finish, prefetch_decide),
+the inter frame (_encode_p, low delay and random access), the
+screen-content key frame (_encode_key_sc) and the loop-restoration
+search (_lr_apply_and_search). Everything else — the native C commit
+walks, entropy coding, in-loop filters, DPB and CDF state — is the JAX
+package's host code, unchanged.
 
 _encode_p is a copy of the reference method. Only the low-delay branch of
 its device-search block (from its ``else:`` to the global-motion comment)
 and its first lines (no jax import) differ; tests/test_torch_encode.py
-guards every other line against drift.
+guards every other line against drift. _encode_key_sc and
+_lr_apply_and_search are copies that build the port's IntraEncoder and
+DeviceLrSearch on ``self.device``; tests/test_torch_intra_encoder.py and
+tests/test_torch_lr.py guard every other statement.
 
 Device work runs on ``self.device``. On CUDA the programs are launched
 asynchronously in stream order; each packed result comes home through a
@@ -30,6 +35,8 @@ from svt_av1_psy_tpu.models import fast_intra
 from svt_av1_psy_tpu.models.intra_encoder import EncodedFrame, _pad_to
 from svt_av1_psy_tpu.ops.quant import ac_q
 from svt_av1_psy_tpu_torch.kernels.hme import hme_search_kernel
+from svt_av1_psy_tpu_torch.models.intra_encoder import IntraEncoder
+from svt_av1_psy_tpu_torch.models.lr_search import DeviceLrSearch
 from svt_av1_psy_tpu_torch.ops.torch_backend import (hme2_unpack,
                                                      hme_search2,
                                                      intra_decide_packed,
@@ -67,15 +74,122 @@ class FastIntraEncoder(fast_intra.FastIntraEncoder):
         raise NotImplementedError(
             "sharded decide (make_sharded_decide): ROADMAP queue 1 item 10")
 
+    # --- screen-content key frames ----------------------------------------
     def _encode_key_sc(self, y, u, v, order_hint=None) -> EncodedFrame:
-        raise NotImplementedError(
-            "screen-content key frames (block_mode_costs): ROADMAP queue 1 "
-            "item 8")
+        """Screen-content KEY frame through the full-RD intra path
+        (palette + intra-block-copy searches, models/intra_encoder.py;
+        ref palette.c:553 k-means + hash_motion.c:351 IBC hash search).
+        The fast path owns the stream: the slow encoder shares this
+        stream's SequenceParams, and its recon + end-of-frame CDF
+        context bridge into the fast DPB so the inter walk references
+        the SC key exactly like a fast-coded one."""
+        from svt_av1_psy_tpu.utils.trace import stage as _tstage
 
+        d = self.frame_index if order_hint is None else order_hint
+        # frame-kind q: same kf ladder as the fast key path
+        kq = getattr(self, "kf_qindex", None)
+        if self.gop_size == 1:
+            base_q = self.qindex
+        elif kq is not None:
+            base_q = int(kq)
+        else:
+            base_q = max(0, int(self.qindex *
+                                getattr(self, "kf_qfrac", 0.75)))
+        self._last_coded_q = base_q
+        self._last_is_key = True
+
+        # seq flags must be armed before frame 0 writes the seq header
+        # (same block as the fast key path)
+        self.seq.enable_masked_compound = bool(
+            getattr(self, "masked_compound_search", False))
+        self.seq.enable_interintra_compound = bool(
+            getattr(self, "interintra_search", False))
+        self.seq.enable_filter_intra = bool(
+            getattr(self, "fi_search", False))
+        if self.frame_index == 0:
+            self.seq.enable_restoration = bool(self.enable_lr)
+
+        sc = IntraEncoder(self.width, self.height, qindex=base_q,
+                          bd=self.bd, search_top_k=2, device=self.device)
+        sc.seq = self.seq                    # one stream, one seq header
+        sc.screen_content = True
+        sc.enable_intrabc = True
+        sc.frame_index = d                   # order_hint + seq-header gate
+        with _tstage("sc_key_walk"):
+            f = sc.encode_frame(y, u, v)
+
+        # bridge recon into the fast ping-pong planes (edge-replicated
+        # into the padded area like every walked frame leaves them)
+        H, W = self.height, self.width
+        cH, cW = (H + 1) // 2, (W + 1) // 2
+        self._join_pending_filter(self._rec_y)
+        self._rec_y[:H, :W] = f.recon_y
+        self._rec_y[:H, W:self.paw] = self._rec_y[:H, W - 1:W]
+        self._rec_y[H:self.pah, :self.paw] = \
+            self._rec_y[H - 1:H, :self.paw]
+        for buf, plane, (h2, w2, pw2) in (
+                (self._rec_u, f.recon_u, (cH, cW, self.paw // 2)),
+                (self._rec_v, f.recon_v, (cH, cW, self.paw // 2))):
+            buf[:h2, :w2] = plane
+            buf[:h2, w2:pw2] = buf[:h2, w2 - 1:w2]
+            buf[h2:self.pah // 2, :pw2] = buf[h2 - 1:h2, :pw2]
+
+        # end-of-frame CDF context + DPB refresh (a shown KEY refreshes
+        # every slot), identical to the fast key tail
+        fc = sc.tw.fc
+        self._fc_saved = fc
+        if getattr(self, "ra_mode", False):
+            self._dpb_fc = {s: fc for s in range(8)}
+        elif self.hierarchical_levels > 0:
+            self._dpb_fc[0] = fc
+            self._last_slot_by_layer = {0: 0}
+        if self.hierarchical_levels > 0 or getattr(self, "ra_mode", False):
+            rec = (self._rec_y.copy(), self._rec_u.copy(),
+                   self._rec_v.copy())
+            self._dpb = {s: rec for s in range(8)} \
+                if getattr(self, "ra_mode", False) else {0: rec}
+        self._slot_gm = [((0, 0),) * 7 for _ in range(8)]
+        if self.enable_mfmv:
+            from svt_av1_psy_tpu.inter.mfmv import save_motion_field
+            kh = d & 0x7F
+            mf = save_motion_field([], self.mi_rows, self.mi_cols, kh,
+                                   [kh] * 7, [kh] * 7, 7, is_intra=True)
+            self._slot_mf = [mf] * 8
+        self._slot_hint = [d & 0x7F] * 8
+        # the IBC key coded with all in-loop filters off: drop the
+        # cross-frame filter caches so the next inter frame re-searches
+        self._dlf_cache = None
+        self._cdef_cache = None
+        self._lr_pending = None
+        self.frame_index += 1
+        self._swap_recon()
+        from svt_av1_psy_tpu.utils.trace import next_frame as _tnext
+        _tnext()
+        return f
+
+    # --- loop restoration ---------------------------------------------------
     def _lr_apply_and_search(self, yp, up, vp, base_q, lr_dec, pre_cdef):
-        raise NotImplementedError(
-            "loop-restoration search (DeviceLrSearch): ROADMAP queue 1 "
-            "item 6")
+        """Apply this frame's signalled LR params (normative, in place on
+        the recon) and dispatch the device search for the next frame's
+        params on the pre-LR post-CDEF recon (the cross-frame cache;
+        ref rest_process.c / restoration_pick.c:1471 — the solve +
+        filtered-SSE math runs on the device, models/lr_search.py
+        DeviceLrSearch)."""
+        from svt_av1_psy_tpu.ops.quant import ac_q
+        from svt_av1_psy_tpu.ops.restoration import apply_lr_frame
+        H, W = self.height, self.width
+        cw, ch = (W + 1) // 2, (H + 1) // 2
+        dims = [(W, H), (cw, ch), (cw, ch)]
+        planes = [self._rec_y, self._rec_u, self._rec_v]
+        qstep = ac_q(base_q, self.bd) / 8.0
+        rdmult = 0.12 * qstep * qstep * getattr(self, "_cur_rd_scale", 1.0)
+        if self._lr_dev is None:
+            self._lr_dev = DeviceLrSearch(dims, self.bd, device=self.device)
+        tok = self._lr_dev.dispatch((yp, up, vp), planes)
+        if lr_dec is not None:
+            apply_lr_frame(planes, list(pre_cdef), dims, lr_dec.lr_type,
+                           lr_dec.unit_size, lr_dec.units, bd=self.bd)
+        self._lr_pending = ("dev", tok, rdmult)
 
     # --- device search stage ---------------------------------------------
     def _decide_dispatch(self, yp: np.ndarray) -> HostCopy:

@@ -1,12 +1,13 @@
-"""PyTorch device search programs: intra decision, motion search, the
-temporal filter and the GoP program.
+"""PyTorch device search programs: intra decision, the full-RD path's
+mode costs, motion search, the temporal filter and the GoP program.
 
 The port of the device programs of svt_av1_psy_tpu/ops/jax_backend.py that
-the low-delay and random-access paths run. Every function takes tensors on
-one device (CPU or CUDA) and computes with the same int32 integer math as
-the JAX function it names, so the outputs are equal byte for byte; the
-float32 temporal filter follows the reference's order of operations and
-is held to it within a stated bound (tests/test_torch_gop.py). The numpy
+the low-delay, random-access and full-RD intra paths run. Every function
+takes tensors on one device (CPU or CUDA) and computes with the same int32
+integer math as the JAX function it names, so the outputs are equal byte
+for byte; the float32 temporal filter follows the reference's order of
+operations and is held to it within a stated bound
+(tests/test_torch_gop.py). The numpy
 unpackers are copied here so that the port never imports jax_backend
 (which imports jax at module level).
 
@@ -304,6 +305,24 @@ def intra_decide_unpack(buf, shape):
         off += n
     assert off == buf.size
     return tuple(parts)
+
+
+def block_mode_costs(plane: torch.Tensor, size: int, bd: int = 8):
+    """jax_backend.block_mode_costs: the open-loop SAD of the 7
+    non-directional modes for every size x size block of a plane (dims
+    multiples of size). Returns (costs (nr, nc, 7) int32, best (nr, nc)
+    int32); best is the first minimal mode, as jnp.argmin picks it."""
+    p = plane.to(torch.int32)
+    H, W = p.shape
+    above, left, al, ha, hl = _gather_sb_edges(p, size, bd)
+    n = above.shape[0]
+    preds = predict_modes_batch(above, left, al, ha, hl, size, size, bd)
+    blocks = p.reshape(H // size, size, W // size, size).permute(0, 2, 1, 3)
+    sad = (blocks.reshape(n, 1, size, size) - preds).abs().sum(
+        dim=(2, 3), dtype=torch.int32)
+    nr, nc = H // size, W // size
+    return (sad.reshape(nr, nc, -1),
+            sad.argmin(dim=1).to(torch.int32).reshape(nr, nc))
 
 
 # --- full-pel motion search -------------------------------------------------

@@ -3,8 +3,9 @@
 The port's Encoder (device search in PyTorch, on the CPU here) must give
 the JAX package's payload bytes frame for frame on the SVT_HME_PALLAS=1
 route and on the default (hme_search2) route, decode dav1d-exactly to its
-own recon, never import jax, refuse a GPU it does not have, and raise
-NotImplementedError on the branches it does not port yet.
+own recon, never import jax, refuse a GPU it does not have, and route
+every single-device config as the reference does (only the multi-device
+decide raises NotImplementedError).
 """
 
 import inspect
@@ -22,6 +23,7 @@ from svt_av1_psy_tpu import api as ref_api
 from svt_av1_psy_tpu.decoder.dav1d import decode_obus
 from svt_av1_psy_tpu_torch.api import Encoder, EncoderConfig, PredStructure
 from svt_av1_psy_tpu_torch.models import fast_intra as port_fi
+from svt_av1_psy_tpu_torch.models import intra_encoder as port_ie
 from svt_av1_psy_tpu_torch.models import ra as port_ra
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -129,6 +131,31 @@ pkts = [p for f in frames for p in enc.send_picture(*f)] + enc.flush()
 enc.close()
 assert sorted(p.display_idx for p in pkts if p.display_idx >= 0) == \
     list(range(len(frames)))
+# the preset-6 north-star route: random access with TF, TPL and LR
+cfg = EncoderConfig(enc_mode=6, qp=30, intra_period_length=-1,
+                    hierarchical_levels=2, enable_tf=1, tf_strength=1)
+enc = Encoder(cfg, 176, 144, device="cpu")
+pkts = [p for f in frames for p in enc.send_picture(*f)] + enc.flush()
+assert enc._enc.enable_lr and enc._enc._lr_dev is not None
+enc.close()
+assert sorted(p.display_idx for p in pkts if p.display_idx >= 0) == \
+    list(range(len(frames)))
+# a screen-content key (--scm 2 flags text) through the full-RD encoder
+from svt_av1_psy_tpu_torch.models.fast_intra import FastIntraEncoder
+sc_keys = []
+orig = FastIntraEncoder._encode_key_sc
+FastIntraEncoder._encode_key_sc = \
+    lambda self, *a: sc_keys.append(1) or orig(self, *a)
+text = np.full((144, 176), 235, np.uint8)
+text[:18] = 64
+text[40:90:6, 8:170:5] = 16
+uv = np.full((72, 88), 128, np.uint8)
+cfg = EncoderConfig(enc_mode=10, qp=30, intra_period_length=-1,
+                    pred_structure=PredStructure.LOW_DELAY_B)
+enc = Encoder(cfg, 176, 144, device="cpu")
+assert enc.encode(text, uv, uv).payload
+enc.close()
+assert sc_keys == [1], sc_keys
 assert not attempts, attempts
 assert "jax" not in sys.modules
 print("NO_JAX_OK")
@@ -151,30 +178,40 @@ def test_cuda_without_gpu_raises(monkeypatch):
         Encoder(LD_CFG, 176, 144, device="cuda")
 
 
-@pytest.mark.parametrize("change, ported", [
+@pytest.mark.parametrize("change, route", [
     ({"pred_structure": PredStructure.RANDOM_ACCESS,
-      "hierarchical_levels": 5}, True),
-    ({"enable_restoration_filtering": 1}, False),
-    ({"enc_mode": 6}, False),        # LR on by default at preset <= 7
-    ({"enc_mode": 3}, False),
-    ({"screen_content_mode": 1}, False),
+      "hierarchical_levels": 5}, "ra"),
+    ({"enable_restoration_filtering": 1}, "lr"),
+    ({"enc_mode": 6}, "lr"),          # LR on by default at preset <= 7
+    ({"enc_mode": 3}, "full_rd"),
+    ({"screen_content_mode": 1}, "full_rd"),
 ], ids=["random_access", "lr", "preset6", "preset3", "scm1"])
-def test_unported_routes_raise(change, ported):
-    """The routing: random access builds the port's RaDriver; the routes
-    the port does not cover raise, naming their ROADMAP item."""
+def test_unported_routes_raise(change, route):
+    """The routing, as the reference's: random access builds the port's
+    RaDriver; LR turns on the fast encoder's search on the port's device;
+    presets <= 3 and --scm 1 build the port's IntraEncoder. No route
+    raises any more."""
     cfg = LD_CFG.replace(**change)
-    if not ported:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Encoder(cfg, 176, 144, device="cpu")
-        return
+    ref = ref_api.Encoder(cfg.replace(hierarchical_levels=0), 176, 144)
     enc = Encoder(cfg, 176, 144, device="cpu")
     try:
-        assert type(enc._ra) is port_ra.RaDriver
-        assert enc._ra.enc is enc._enc and enc._ra.M == 32
-        assert enc.cfg.hierarchical_levels == 5
-        assert type(enc._enc) is port_fi.FastIntraEncoder
+        assert enc._enc.device == torch.device("cpu")
+        if route == "ra":
+            assert type(enc._ra) is port_ra.RaDriver
+            assert enc._ra.enc is enc._enc and enc._ra.M == 32
+            assert enc.cfg.hierarchical_levels == 5
+        else:
+            assert enc._ra is None
+        if route == "full_rd":
+            assert type(enc._enc) is port_ie.IntraEncoder
+            assert type(ref._enc) is port_ie.IntraEncoder.__base__
+        else:
+            assert type(enc._enc) is port_fi.FastIntraEncoder
+            assert enc._enc.enable_lr == ref._enc.enable_lr == \
+                (route == "lr")
     finally:
         enc.close()
+        ref.close()
 
 
 def test_hme_search2_route_raises(default_route):
@@ -187,15 +224,25 @@ def test_hme_search2_route_raises(default_route):
 
 
 def test_unported_methods_raise():
+    """Only the multi-device decide still raises. The screen-content key
+    and the LR search run, with the reference's results on a 64x64
+    frame."""
     enc = port_fi.FastIntraEncoder(64, 64, qindex=120, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        enc.make_sharded_decide(None)
+    ref = ref_fi.FastIntraEncoder(64, 64, qindex=120)
     y = np.zeros((64, 64), np.uint8)
-    uv = np.zeros((32, 32), np.uint8)
-    for call in (lambda: enc.make_sharded_decide(None),
-                 lambda: enc._encode_key_sc(y, uv, uv),
-                 lambda: enc._lr_apply_and_search(y, uv, uv, 120, None,
-                                                  None)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    y[8:12, 4:60:3] = 200
+    uv = np.full((32, 32), 128, np.uint8)
+    assert enc._encode_key_sc(y, uv, uv).payload == \
+        ref._encode_key_sc(y, uv, uv).payload
+    for e in (enc, ref):
+        e._lr_apply_and_search(y, uv, uv, 120, None, None)
+    assert enc._lr_pending[0] == "dev"
+    got, want = enc._take_lr_pending(), ref._take_lr_pending()
+    assert (got is None) == (want is None)
+    if got is not None:
+        assert got.lr_type == want.lr_type and got.units == want.units
 
 
 def _outside_device_block(method):
