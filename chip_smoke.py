@@ -14,7 +14,11 @@ Drives the port's paths once each through its public API, on "cuda", at
     at preset 6, where loop restoration is on and runs its search program
     (DeviceLrSearch) on every coded frame;
   - the full-RD route (IntraEncoder, its mode costs in block_mode_costs):
-    a screen-content key at preset 10 and a preset-3 encode.
+    a screen-content key at preset 10 and a preset-3 encode;
+  - the command-line encoder (python -m svt_av1_psy_tpu_torch, run here in
+    this process through app.cli.main): low delay at preset 10 on the K1
+    route, where the key frame's temporal filter and the TPL lookahead
+    search through hme_mv_sad, and the default random access at preset 8.
 Before that it builds every CUDA kernel from the sources in this checkout
 and holds each against its plain PyTorch version at the shapes the path
 gives it. K1 is the only hand-written kernel; the other device programs
@@ -26,7 +30,9 @@ and prints no result):
   2. build K1 (csrc/hme_sad_scan.cu) with nvcc, timed;
   3. K1 against the plain hme_search on 1088x1920 planes (random,
      shifted + noise, flat where every offset ties): byte-equal, with
-     both times (CUDA events, median of several runs);
+     both times (CUDA events, median of several runs), the kernel's time
+     alone, and its bound (the card's least time for the same work: its
+     operations at the int8 peak, its bytes at the memory rate);
   4. the LD encode on the K1 route: K1 must launch once per P frame; fps
      and the SVT_TRACE stage times;
   5. its first frames again on "cpu": the payload bytes must be equal;
@@ -56,9 +62,23 @@ and prints no result):
  13. preset-6 RA at 352x288 (3 levels, 17 frames) on "cuda" and "cpu":
      equal payload bytes, or LR tap or decision differences that explain
      the difference; the cuda stream decoded by the repo's own decoder
-     (svt_av1_psy_tpu/decoder) equals its recon;
+     (the port's decoder/) equals its recon;
  14. a screen-content key (preset 10, --scm 2 flags it) and a preset-3
-     encode at 176x144: cuda payload bytes equal cpu's.
+     encode at 176x144: cuda payload bytes equal cpu's;
+ 15. the CLI on an 8-frame 1080p y4m, --keyint 0 --preset 10 --crf 30 on
+     the K1 route: K1's launches counted (one per P frame, two for the
+     key frame's TF, one per TPL lookahead frame), fps and the SVT_TRACE
+     stages; its first 3 frames (-n 3) on cuda and cpu: equal IVF bytes;
+ 16. the CLI's default random access (preset 8, TF and TPL; --crf 30) on
+     a 33-frame 1080p y4m, timed; at 352x288, 17 frames, on cpu and cuda:
+     equal IVF bytes with --enable-tf 0, and with TF on when the cuda run
+     codes the cpu run's filtered planes (the filter is float32: the
+     pixels that differ between the devices are counted); the own decoder
+     decodes the stream;
+ 17. after the last timed phase, the CLI LD stream of phase 15 through
+     the repo's own decoder: all 8 frames above the PSNR floor.
+At the end no module of jax or of the JAX package (svt_av1_psy_tpu) may
+have been loaded.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 The line before the last is {"kernels": [...]}; the last line is
@@ -125,6 +145,254 @@ def hme_pair(np, kind: str, seed: int = 3):
     ref = np.clip(ref.astype(np.int16) + rng.integers(-6, 7, ref.shape),
                   0, 255).astype(np.uint8)
     return src, ref
+
+
+INT8_OPS_PER_S = 1.979e15       # H100 SXM, int8 dense peak (data sheet)
+HBM_BYTES_PER_S = 3.35e12
+
+
+def k1_bound(src, ref, search_range: int):
+    """The least time the card could take for hme_search_kernel's work on
+    one pair: the larger of its operations over the card's fastest rate
+    for 8-bit integers and its bytes over the memory rate. Returns (ms,
+    "operations" or "bytes", operations, bytes, ms by operations, ms by
+    bytes). Operations: per 16x16 block and offset, 64 absolute
+    differences added into a sum (2 each, as a multiply-add counts 2) and
+    one compare, plus the rounded 2x2 decimation of both planes (5 per
+    half-res pixel), at 1,979 TOP/s (the pixels are 8-bit). Bytes: both
+    int32 input planes read once, mv (int16 x 2) and sad (int32) written
+    once, at 3.35 TB/s."""
+    h, w = src.shape
+    blocks = (h // 16) * (w // 16)
+    side = 2 * search_range + 1
+    ops = blocks * side * side * (64 * 2 + 1) + 2 * (h // 2) * (w // 2) * 5
+    nbytes = src.numel() * src.element_size() + \
+        ref.numel() * ref.element_size() + blocks * (2 * 2 + 4)
+    t_ops = 1e3 * ops / INT8_OPS_PER_S
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes), \
+        "operations" if t_ops >= t_bytes else "bytes", ops, nbytes, \
+        t_ops, t_bytes
+
+
+def write_y4m(path, frames) -> None:
+    from svt_av1_psy_tpu_torch.io.y4m import Y4mWriter
+    h, w = frames[0][0].shape
+    with Y4mWriter(str(path), w, h, 30, 1, 8) as wr:
+        for f in frames:
+            wr.write_frame(*f)
+
+
+def run_cli(torch, argv: list) -> float:
+    """The port's CLI in this process (so that K1's launch count and the
+    SVT_TRACE stages are this process's); its wall time in s."""
+    from svt_av1_psy_tpu_torch.app.cli import main as cli_main
+    t0 = time.perf_counter()
+    rc = cli_main(argv + ["--progress", "0"])
+    torch.cuda.synchronize()
+    if rc != 0:
+        fail(f"the CLI exited {rc}: {' '.join(argv)}")
+    return time.perf_counter() - t0
+
+
+def decode_check(np, data: bytes, frames, what: str) -> list:
+    """The repo's own decoder (the port's copy) on an IVF stream: one
+    shown frame per source frame, each above the PSNR floor."""
+    from svt_av1_psy_tpu_torch.decoder.driver import decode_ivf
+    dec = decode_ivf(data)
+    if len(dec) != len(frames):
+        fail(f"{what}: the decoder gave {len(dec)} frames for "
+             f"{len(frames)}")
+    return [psnr_check(np, f[0], d.y, f"{what} frame {i}")
+            for i, (f, d) in enumerate(zip(frames, dec))]
+
+
+def cli_ld_phase(np, json, torch, frames, tmp, trace_path, card,
+                 problems: list):
+    """This slice's main path: the port's CLI on a 1080p y4m, low delay
+    (--keyint 0 --preset 10 --crf 30) on the K1 route, where the key
+    frame's temporal filter and tpl_sb_offsets run their searches through
+    hme_mv_sad. Returns K1's launches in that run and the stream, which
+    the repo's own decoder reads after the last timed phase."""
+    from svt_av1_psy_tpu_torch.kernels.hme import hme_search_kernel
+    n = len(frames)
+    clip = tmp / "ld.y4m"
+    write_y4m(clip, frames)
+    ld = ["--keyint", "0", "--preset", "10", "--crf", "30"]
+    # one launch per P frame, one per lookahead frame of the key frame's
+    # TF window (2), one per lookahead frame of tpl_sb_offsets (up to 3)
+    tpl = [min(3, n - 1 - i) for i in range(n)]
+    want = (n - 1) + 2 + sum(tpl)
+    # the CLI's host TF and TPL run outside the SVT_TRACE stages: time
+    # each call (the CLI looks both up at each call)
+    import svt_av1_psy_tpu_torch.models.temporal_filter as tf_mod
+    import svt_av1_psy_tpu_torch.models.tpl as tpl_mod
+    host = {}
+
+    def timed(mod, name):
+        fn = getattr(mod, name)
+
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                host.setdefault(f"{name} (CLI)", []).append(
+                    1e3 * (time.perf_counter() - t0))
+        setattr(mod, name, wrapper)
+        return fn
+
+    originals = [(tf_mod, "temporal_filter",
+                  timed(tf_mod, "temporal_filter")),
+                 (tpl_mod, "tpl_sb_offsets",
+                  timed(tpl_mod, "tpl_sb_offsets"))]
+    os.environ["SVT_HME_PALLAS"] = "1"
+    try:
+        first = trace_lines(trace_path)
+        out = tmp / "ld_cuda.ivf"
+        hme_search_kernel.launches = 0
+        secs = run_cli(torch, ["-i", str(clip), "-b", str(out),
+                               "--device", "cuda"] + ld)
+        launches = hme_search_kernel.launches
+        stages = trace_stages(json, trace_path, first)
+        stages.update({k: list(v) for k, v in host.items()})
+        short = {}
+        for dev in ("cuda", "cpu"):
+            path = tmp / f"ld{N_CPU_FRAMES}_{dev}.ivf"
+            run_cli(torch, ["-i", str(clip), "-b", str(path), "-n",
+                            str(N_CPU_FRAMES), "--device", dev] + ld)
+            short[dev] = path.read_bytes()
+    finally:
+        del os.environ["SVT_HME_PALLAS"]
+        for mod, name, fn in originals:
+            setattr(mod, name, fn)
+    data = out.read_bytes()
+    print(f"{n} frames in {secs:.3f} s: {n / secs:.3f} fps, {len(data)} "
+          f"bytes; K1 launches {launches} (want {want}: {n - 1} P frames, "
+          f"2 TF, TPL {tpl}) [{card}]")
+    print_stages(stages)
+    if launches != want:
+        problems.append(f"CLI LD: K1 launched {launches} times, want {want}")
+    same = short["cuda"] == short["cpu"]
+    print(f"first {N_CPU_FRAMES} frames (-n {N_CPU_FRAMES}) cuda vs cpu: "
+          f"IVF bytes {'equal' if same else 'differ'}")
+    if not same:
+        problems.append("CLI LD: cuda bytes differ from cpu's")
+    return launches, data
+
+
+def cli_ra_phase(np, json, torch, make_frame, tmp, trace_path, card,
+                 problems: list) -> None:
+    """The CLI's default random access (preset 8, TF and TPL on; --crf
+    30) at 1080p, timed; then at 352x288 on cpu and on cuda, with TF off
+    and on, where the cuda run is given the cpu run's temporally filtered
+    planes (TfReplay): the IVF bytes must be equal; the own decoder must
+    decode the TF-on stream."""
+    from svt_av1_psy_tpu_torch.bitstream.ivf import read_ivf
+    from svt_av1_psy_tpu_torch.kernels.hme import hme_search_kernel
+    rng = np.random.default_rng(7)
+    clip = tmp / "ra.y4m"
+    write_y4m(clip, [make_frame(W, H, t, 8, 0.02, rng)
+                     for t in range(RA_FRAMES)])
+    out = tmp / "ra_cuda.ivf"
+    first = trace_lines(trace_path)
+    hme_search_kernel.launches = 0
+    secs = run_cli(torch, ["-i", str(clip), "-b", str(out), "--crf", "30",
+                           "--device", "cuda"])
+    _, tus = read_ivf(str(out))
+    print(f"{RA_FRAMES} frames in {secs:.3f} s: {RA_FRAMES / secs:.3f} fps; "
+          f"{len(tus)} TUs, {sum(len(p) for _, p in tus)} bytes; K1 "
+          f"launches {hme_search_kernel.launches} [{card}]")
+    print_stages(trace_stages(json, trace_path, first))
+    if len(tus) < RA_FRAMES:
+        problems.append(f"CLI RA: {len(tus)} TUs for {RA_FRAMES} frames")
+    small = [make_frame(CMP_W, CMP_H, t, 8, 0.02, rng)
+             for t in range(CMP_FRAMES)]
+    clip = tmp / "ra_small.y4m"
+    write_y4m(clip, small)
+    data = {}
+    replay = TfReplay(np, torch)
+    try:
+        for tf in ("0", "1"):
+            for dev in ("cpu", "cuda"):
+                path = tmp / f"ra_small_tf{tf}_{dev}.ivf"
+                s = run_cli(torch, ["-i", str(clip), "-b", str(path),
+                                    "--crf", "30", "--enable-tf", tf,
+                                    "--device", dev])
+                data[tf, dev] = path.read_bytes()
+                print(f"{CMP_W}x{CMP_H}, {CMP_FRAMES} frames, --enable-tf "
+                      f"{tf} on {dev}: {s:.3f} s, {len(data[tf, dev])} "
+                      "bytes")
+    finally:
+        replay.close()
+    n, n_px, n_diff, max_diff = replay.diffs(np)
+    print(f"--enable-tf 1: {n} temporal filters; {n_diff} of {n_px} "
+          f"filtered pixels differ between cuda and cpu (largest difference "
+          f"{max_diff}); the cuda run coded the cpu run's filtered planes")
+    if not n:
+        problems.append("CLI RA 352x288 --enable-tf 1 ran no temporal "
+                        "filter")
+    for tf in ("0", "1"):
+        same = data[tf, "cuda"] == data[tf, "cpu"]
+        print(f"--enable-tf {tf}: IVF bytes {'equal' if same else 'differ'}")
+        if not same:
+            problems.append(f"CLI RA 352x288 --enable-tf {tf}: cuda bytes "
+                            "differ from cpu's")
+    psnrs = decode_check(np, data["1", "cuda"], small, "CLI RA 352x288")
+    print(f"own decoder: {len(psnrs)} frames, luma PSNR "
+          f"{min(psnrs):.2f}..{max(psnrs):.2f} dB")
+
+
+class TfReplay:
+    """A spy on the port's tf_filter_device, which the GoP program and the
+    key frame's filter call. It records the planes of every temporal
+    filter of a cpu run. In a cuda run it runs the filter on the card,
+    records those planes, and hands the encoder the cpu run's planes of
+    the same call instead: the filter is float32 (another exp and sum
+    order on the card, so a few pixels round apart), and with equal
+    planes everything after it must give equal bytes."""
+
+    def __init__(self, np, torch):
+        import svt_av1_psy_tpu_torch.models.ra as ra_mod
+        import svt_av1_psy_tpu_torch.ops.torch_backend as tb_mod
+        self.mods = (tb_mod, ra_mod)
+        self.orig = tb_mod.tf_filter_device
+        self.cpu, self.cuda = [], []
+        log = self
+
+        def spy(*args, **kwargs):
+            out = log.orig(*args, **kwargs)
+            planes = [np.asarray(o.cpu()) for o in out]
+            if out[0].device.type == "cpu":
+                log.cpu.append(planes)
+                return out
+            log.cuda.append(planes)
+            if len(log.cuda) > len(log.cpu):
+                fail("the cuda run filtered more frames than the cpu run")
+            return tuple(torch.from_numpy(p).to(o.device)
+                         for p, o in zip(log.cpu[len(log.cuda) - 1], out))
+
+        for mod in self.mods:
+            mod.tf_filter_device = spy
+
+    def close(self) -> None:
+        for mod in self.mods:
+            mod.tf_filter_device = self.orig
+
+    def diffs(self, np):
+        """(filters compared, filtered pixels, pixels that differ, largest
+        difference) between the cuda and the cpu run."""
+        n_px = n_diff = max_diff = 0
+        if len(self.cuda) != len(self.cpu):
+            fail(f"cuda ran {len(self.cuda)} temporal filters, cpu "
+                 f"{len(self.cpu)}")
+        for pa, pb in zip(self.cuda, self.cpu):
+            for x, y in zip(pa, pb):
+                d = np.abs(x.astype(np.int64) - y)
+                n_px += d.size
+                n_diff += int((d > 0).sum())
+                max_diff = max(max_diff, int(d.max()))
+        return len(self.cuda), n_px, n_diff, max_diff
 
 
 def psnr_check(np, frame_y, rec_y, what: str) -> float:
@@ -294,9 +562,9 @@ def lr_phase(np, torch, src, rec, base_q, dev, card) -> None:
     cpu, the cuda dispatch under sync debug mode "error", timed."""
     from torch.profiler import ProfilerActivity, profile
 
-    from svt_av1_psy_tpu.ops.quant import ac_q
     from svt_av1_psy_tpu_torch.models.lr_search import (DeviceLrSearch,
                                                         _upload)
+    from svt_av1_psy_tpu_torch.ops.quant import ac_q
     dims = [(W, H)] + [((W + 1) // 2, (H + 1) // 2)] * 2
     lr = {d: DeviceLrSearch(dims, 8, device=d) for d in (dev, "cpu")}
     torch.cuda.synchronize()
@@ -348,7 +616,7 @@ def lr_phase(np, torch, src, rec, base_q, dev, card) -> None:
     busy_ms = sum(r.self_device_time_total for r in rows) / 1e3
     # the host's share of the loop_restoration stage: launching the
     # search, and applying a decision to the recon (numpy, normative)
-    from svt_av1_psy_tpu.ops.restoration import apply_lr_frame
+    from svt_av1_psy_tpu_torch.ops.restoration import apply_lr_frame
     t0 = time.perf_counter()
     tok = lr[dev].dispatch(src, rec)
     launch_ms = 1e3 * (time.perf_counter() - t0)
@@ -420,7 +688,7 @@ def preset6_cmp_phase(np, torch, Encoder, EncoderConfig, make_frame,
                       lr_cls) -> None:
     """Preset-6 RA at 352x288 on cuda and cpu; the cuda stream through
     the repo's own decoder."""
-    from svt_av1_psy_tpu.decoder.driver import Decoder
+    from svt_av1_psy_tpu_torch.decoder.driver import Decoder
     rng = np.random.default_rng(11)
     small = [make_frame(CMP_W, CMP_H, t, 8, 0.02, rng)
              for t in range(CMP_FRAMES)]
@@ -522,14 +790,13 @@ def main() -> None:
     if not (ROOT / "svt_av1_psy_tpu_torch").is_dir():
         fail("svt_av1_psy_tpu_torch/ is missing: run from a checkout")
     os.environ["SVT_HME_PALLAS"] = "1"
-    # per-frame stage times (svt_av1_psy_tpu/utils/trace.py writes one
-    # JSON line per frame as each frame closes)
+    # per-frame stage times (the port's utils/trace.py writes one JSON
+    # line per frame as each frame closes)
     trace_dir = tempfile.TemporaryDirectory()
     trace_path = pathlib.Path(trace_dir.name) / "trace.jsonl"
     os.environ["SVT_TRACE"] = str(trace_path)
-    sys.path[:0] = [str(ROOT), str(ROOT / "tools")]
+    sys.path.insert(0, str(ROOT))
     import numpy as np
-    from make_test_clip import make_frame
 
     from svt_av1_psy_tpu_torch.api import Encoder, EncoderConfig, \
         PredStructure
@@ -537,6 +804,7 @@ def main() -> None:
     from svt_av1_psy_tpu_torch.kernels.hme import hme_search_kernel
     from svt_av1_psy_tpu_torch.ops import torch_backend as tb
     from svt_av1_psy_tpu_torch.utils.device import HostCopy
+    from svt_av1_psy_tpu_torch.utils.test_clip import make_frame
 
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
@@ -588,11 +856,30 @@ def main() -> None:
     k1_ms = statistics.median(runs["k1"])
     plain_ms = statistics.median(runs["plain"])
     decide_ms = cuda_ms(torch, lambda: tb.intra_decide_packed(s, 700), 5)
+    # the CUDA kernel alone, on the planes the wrapper prepares
+    from svt_av1_psy_tpu_torch.kernels.hme import _entry
+    sh, rp = tb.hme_planes(s, r, 12)
+    n16r, n16c = sh.shape[0] // 8, sh.shape[1] // 8
+    k_sad = torch.empty((n16r, n16c), dtype=torch.int32, device=dev)
+    k_mv = torch.empty((n16r, n16c, 2), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    kernel_ms = cuda_ms(torch, lambda: _entry()(
+        sh.data_ptr(), rp.data_ptr(), k_sad.data_ptr(), k_mv.data_ptr(),
+        n16r, n16c, 12, dev.index, stream), 50)
     torch.cuda.synchronize()
+    bound_ms, bound_by, k1_ops, k1_bytes, ops_ms, bytes_ms = k1_bound(
+        s, r, 12)
     print(f"K1 hme_search_kernel {k1_ms:.4f} ms, plain hme_search "
           f"{plain_ms:.4f} ms per 1088x1920 frame (includes the PyTorch "
-          f"decimation + pad); plain intra_decide_packed {decide_ms:.4f} ms "
-          f"[{card}]")
+          f"decimation + pad); the CUDA kernel alone {kernel_ms:.4f} ms; "
+          f"plain intra_decide_packed {decide_ms:.4f} ms [{card}]")
+    print(f"K1 bound: {k1_ops:.4g} operations at 1,979 TOP/s -> "
+          f"{ops_ms:.5f} ms; {k1_bytes:.4g} bytes (int32 planes in) at "
+          f"3.35 TB/s -> {bytes_ms:.5f} ms; bound {bound_ms:.5f} ms, set by "
+          f"{bound_by}; share {bound_ms / k1_ms:.4f} of the wrapper's time, "
+          f"{bound_ms / kernel_ms:.4f} of the kernel's alone; no single "
+          f"PyTorch call computes it [{card}]")
+    del sh, rp, k_sad, k_mv
 
     phase(f"encode {N_FRAMES} frames 1080p LD preset 10 CRF 30 on cuda")
     rng = np.random.default_rng(7)
@@ -643,10 +930,18 @@ def main() -> None:
 
     # the remaining paths run without a route switch: hme_search2
     del os.environ["SVT_HME_PALLAS"]
+
+    cli_dir = tempfile.TemporaryDirectory()
+    tmp = pathlib.Path(cli_dir.name)
+    problems = []
+    phase(f"CLI: {N_FRAMES} frames 1080p LD preset 10 CRF 30 on cuda, "
+          "K1 route, key-frame TF and TPL lookahead")
+    cli_launches, cli_ld_stream = cli_ld_phase(
+        np, json, torch, frames, tmp, trace_path, card, problems)
     ra_frames = [make_frame(W, H, t, 8, 0.02, rng) for t in range(RA_FRAMES)]
 
     phase("plain programs at 1088x1920 on cuda")
-    from svt_av1_psy_tpu.models.intra_encoder import _pad_to
+    from svt_av1_psy_tpu_torch.models.intra_encoder import _pad_to
     from svt_av1_psy_tpu_torch.ops.torch_backend import EDGE_CHUNK
     ys = [_pad_to(f[0], PAD_H, PAD_W) for f in ra_frames]
     us = [_pad_to(f[1], PAD_H // 2, PAD_W // 2) for f in ra_frames]
@@ -817,8 +1112,10 @@ def main() -> None:
 
     phase(f"north star: encode {NS_FRAMES} frames 1080p RA preset 6 CRF 30, "
           "5 levels, TF 1, TPL on, LR on, on cuda")
+    hme_search_kernel.launches = 0
     north_star_phase(np, torch, json, Encoder, EncoderConfig, make_frame,
                      DeviceLrSearch, trace_path, card)
+    ns_launches = hme_search_kernel.launches
 
     phase(f"RA preset 6 {CMP_W}x{CMP_H}, {CMP_LEVELS} levels, {CMP_FRAMES} "
           "frames: cuda vs cpu, own decoder")
@@ -829,14 +1126,42 @@ def main() -> None:
     full_rd_phase(np, torch, Encoder, EncoderConfig, PredStructure,
                   make_frame)
 
-    if "jax" in sys.modules:
-        fail("jax was imported")
+    phase(f"CLI: {RA_FRAMES} frames 1080p, the default random access "
+          "(preset 8, TF, TPL), CRF 30, on cuda")
+    cli_ra_phase(np, json, torch, make_frame, tmp, trace_path, card,
+                 problems)
+
+    # after the last timed phase: the repo's own decoder is Python, about
+    # half a minute per 1080p frame on one core
+    phase("CLI: the LD stream through the repo's own decoder")
+    t0 = time.perf_counter()
+    psnrs = decode_check(np, cli_ld_stream, frames, "CLI LD")
+    print(f"{len(psnrs)} frames decoded in {time.perf_counter() - t0:.1f} "
+          f"s, luma PSNR {min(psnrs):.2f}..{max(psnrs):.2f} dB >= "
+          f"{MIN_PSNR_DB}")
+    cli_dir.cleanup()
+    # a disagreement of the CLI phases fails the run after all of them
+    # have printed their numbers
+    if problems:
+        fail("; ".join(problems))
+
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "svt_av1_psy_tpu"))
+    if loaded:
+        fail(f"modules of the JAX stack were loaded: {loaded}")
+    print(f"K1 launches per path: LD K1 route {k1_launches}, CLI LD "
+          f"{cli_launches}, north star {ns_launches}")
     print(json.dumps({"kernels": [{
         "name": "hme_sad_scan", "route": "cuda",
         "source": "svt_av1_psy_tpu_torch/csrc/hme_sad_scan.cu",
         "replaces": "svt_av1_psy_tpu/ops/jax_backend.py:689",
-        "launches": k1_launches, "max_abs_err": k1_err,
-        "ms": k1_ms, "plain_ms": plain_ms}]}))
+        "launches": cli_launches, "max_abs_err": k1_err,
+        "ms": k1_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": None,
+        "kernel_only_ms": kernel_ms,
+        "launches_per_path": {"ld_k1_route": k1_launches,
+                              "cli_ld": cli_launches,
+                              "north_star": ns_launches}}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -3,7 +3,7 @@
 Each kernel library is one ``csrc/<name>.cu`` with a plain C entry point,
 compiled by ``nvcc`` into ``_build/lib<name>.so`` inside the package and
 loaded with ctypes. It is built at first use and rebuilt when a digest of
-its source and flags changes (the idiom of svt_av1_psy_tpu/native.py).
+its source and flags changes (the idiom of the package's native.py).
 Nothing is compiled when a module is imported, so the CPU tests import
 every module on a machine with no CUDA toolkit.
 """

@@ -1,32 +1,45 @@
-"""RaDriver, the random-access pyramid, with its device search in PyTorch.
+"""Random-access mini-GoP pyramid driver (fast path).
 
-RaDriver subclasses svt_av1_psy_tpu.models.ra.RaDriver and overrides only
-the methods that call JAX:
+Implements the reference's hierarchical random-access prediction
+structure (ref Source/Lib/Codec/pd_process.c picture-decision GoP
+typing, pred_structure.c pyramid layers, packetization_process.c
+decode-order packet emission) the TPU-native way: the pyramid is pure
+host-side control flow over the existing single-ref device-search +
+native-commit inter path — each frame picks ONE reference frame-level
+(nearest coded past or future anchor, chosen by subsampled SAD), hidden
+anchors are emitted with show_frame=0 and displayed later through
+show_existing_frame TUs.
 
-- _dispatch_gop and _walk_gop are copies of the reference methods. In
-  _dispatch_gop the planes go to ``self.enc.device``, the port's
-  gop_search / gop_search_tf replace the jitted programs, the result comes
-  home through a HostCopy instead of a fetch thread, and the multi-device
-  branch (gop_meshes) raises. _walk_gop differs only in where it imports
-  the unpackers from. tests/test_torch_ra_encode.py guards every other
-  line of both against drift.
-- _tf_device_dispatch runs the key frame's temporal filter on the device
-  and returns HostCopy planes, which the reference's _tf_device_fetch
-  reads through np.asarray.
-- _warmup_async does nothing: the port's programs are eager PyTorch with
-  nothing to compile or load ahead of the first GoP.
+Decode-order emission for a 4-GoP (base b, anchors hidden `h`,
+leaves shown `s`):   [b+4 h] [b+2 h] [b+1 s] [SE b+2] [b+3 s] [SE b+4]
+which displays b+1, b+2, b+3, b+4 in order — the standard AV1 RA
+packing.
 
-The pyramid, the q ladder, TPL and packet emission are the reference's
-host code, unchanged.
+DPB slot management: base + the recursion stack of live anchors
+(max pyramid depth + 1 slots of the 8); slots are allocated from a
+free pool and released when both half-GoPs under an anchor are done.
+
+The port's copy of svt_av1_psy_tpu/models/ra.py, with its device search
+in PyTorch on ``enc.device``. _dispatch_gop sends the planes to that
+device, runs the port's gop_search / gop_search_tf and queues the copy of
+their packed result into pinned memory (a HostCopy) in place of a fetch
+thread; _walk_gop takes the unpackers from the port; _tf_device_dispatch
+runs the key frame's temporal filter there. The multi-device GoP
+meshes (gop_meshes) raise, and _sharded_gop_search, their jax program,
+is not carried over. Nothing is warmed up ahead of the first GoP (the
+reference's _warmup_async compiles its jax programs; the port's are
+eager PyTorch). Everything else is the reference's code;
+tests/test_torch_standalone.py lists what differs and guards the rest
+against drift.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import numpy as np
 import torch
 
-from svt_av1_psy_tpu.models import ra
-from svt_av1_psy_tpu.models.ra import RaPacket
 from svt_av1_psy_tpu_torch.ops.torch_backend import (gop_search,
                                                      gop_search_tf,
                                                      plane_tensor,
@@ -34,13 +47,279 @@ from svt_av1_psy_tpu_torch.ops.torch_backend import (gop_search,
 from svt_av1_psy_tpu_torch.utils.device import HostCopy
 
 
-class RaDriver(ra.RaDriver):
-    """The mini-GoP random-access pyramid over the port's FastIntraEncoder
-    (``enc.device`` names where the device search runs)."""
+@dataclass
+class RaPacket:
+    """One temporal unit in decode order.
 
-    def _warmup_async(self) -> None:
-        """Nothing to warm: no compile step, and the RA path launches no
-        hand-written kernel."""
+    display_idx: display position this TU *shows* (-1 for hidden coded
+    frames); recon: clipped recon planes of the shown frame (None for
+    hidden TUs). recon may be a _LazyRecon — tuple-like, but resolving
+    a deferred in-loop-filter thread on first access.
+    qindex / is_key: the coded base qindex and frame type of the coded
+    frame inside this TU (-1 for show_existing TUs that code nothing) —
+    the library RC feedback (api.Encoder._rc_track) models coded q, not
+    the session base q."""
+    payload: bytes
+    display_idx: int
+    recon: tuple | None
+    qindex: int = -1
+    is_key: bool = False
+
+
+class _LazyRecon:
+    """Tuple-like view over an EncodedFrame's recon planes: accessing
+    any element joins the frame's deferred filter task (leaf-frame
+    filter deferral, fast_intra._deferred_filter_task)."""
+
+    __slots__ = ("_f",)
+
+    def __init__(self, f):
+        self._f = f
+
+    def _t(self):
+        return (self._f.recon_y, self._f.recon_u, self._f.recon_v)
+
+    def __getitem__(self, i):
+        return self._t()[i]
+
+    def __iter__(self):
+        return iter(self._t())
+
+    def __len__(self):
+        return 3
+
+
+class RaDriver:
+    """Buffers a mini-GoP of source frames and encodes it out of order.
+
+    push() returns the finished packets whenever a full GoP (or a forced
+    key boundary) completes; flush() closes the tail GoP.
+    """
+
+    def __init__(self, enc, gop_levels: int = 4, keyint: int = 0,
+                 tf_strength: int = 0, dynamic_gop: bool = False,
+                 tf_adaptive: bool = False):
+        enc.ra_mode = True
+        self.enc = enc
+        self.levels = max(1, min(gop_levels, 5))
+        self.M = 1 << self.levels
+        self.keyint = keyint          # key every N displayed frames (0 =
+                                      # first frame only)
+        self.tf_strength = tf_strength
+        # adaptive TF (the reference's --enable-tf 2, ref
+        # Parameters.md:281 / temporal_filtering.c adaptive gate): skip
+        # the ARF filter on high-motion windows where the full-pel
+        # alignment would blend mismatched content
+        self.tf_adaptive = tf_adaptive
+        self.tf_adaptive_threshold = 10.0   # mean |diff|/px, 8-bit
+        # dynamic mini-GoP (ref Docs/Appendix-Dynamic-Mini-GoP +
+        # pd_process.c GoP typing): close the group early at a
+        # power-of-two size when the buffered motion is high — long
+        # pyramids only pay off when anchors predict the leaves
+        self.dynamic_gop = dynamic_gop
+        self.dyn_threshold = 12.0     # mean |diff|/px (8-bit units)
+        self._mads = []
+        self._dyn_prev = None
+        self._buf = []                # [(display_idx, (y, u, v))]
+        self._next_display = 0
+        self._base_slot = 0
+        self._base_display = -1
+        self._recon_by_display = {}
+        # one-GoP-deep pipeline (SURVEY §2.2 P1/P2): when a mini-GoP
+        # completes, its device search (TF + decide maps + edge HMEs) is
+        # DISPATCHED asynchronously and the GoP is parked; its host
+        # commit walks run when the NEXT GoP completes — so the device
+        # computes GoP N+1's search while the host walks GoP N. The
+        # open-loop search runs on SOURCE planes (the reference's ME
+        # process also searches sources, ref me_process.c:97), which is
+        # what makes the dispatch independent of the pending walks.
+        self._pending = None          # parked GopTask dict
+        self._key_pending = None      # stashed key frame (deferred encode)
+        # dispatch-time base frame (display + padded source luma): the
+        # last dispatched GoP's ARF, or the last key — the edge reference
+        # for the NEXT GoP's open-loop search
+        self._disp_base_display = -1
+        self._disp_base_src = None
+
+    # -- q ladder (ref rc_process.c RA qindex offsets + PSY
+    #    qp-scale-compress weights) ---------------------------------------
+    #
+    # Measured on the synthetic BD clips (33f cif, 4 CRFs, vs the
+    # reference's p8 RA): a flat ladder + small ARF boost gives +14.6%
+    # BD-rate while steeper per-layer spreads lose 20-90% — without
+    # TPL-style boost statistics, pushing leaf q up quantizes away
+    # exactly the residual detail the anchors cannot predict. The
+    # layer_spread knob re-enables a spread (scaled by PSY
+    # qp-scale-compress); tpl_strength > 0 replaces the whole ladder
+    # with the measured r0/beta per-frame q from the GoP dependency
+    # flow (models/tpl.tpl_gop_q; ref rc_process.c:873).
+    layer_spread = 0.0
+    tpl_strength = 0.0
+
+    def _layer_q(self, depth: int) -> int:
+        q = self.enc.qindex
+        if depth == 0:                # ARF: boosted, everything refs it
+            return max(0, q - q // 16)
+        if not self.layer_spread:
+            return q
+        qsc = 1.0 / (1.0 + 0.5 * self.enc.qp_scale_compress_strength)
+        return int(np.clip(round(q * (1 + self.layer_spread * depth *
+                                      qsc)), 0, 255))
+
+    def _is_key(self, d: int) -> bool:
+        if d == 0:
+            return True
+        return self.keyint > 0 and d % self.keyint == 0
+
+    # -- public api --------------------------------------------------------
+    def push(self, y, u, v) -> list[RaPacket]:
+        d = self._next_display
+        self._next_display += 1
+        out = []
+        # scene-change detection in picture decision (ref
+        # pic_analysis_process.c scene_change_detection feeding
+        # pd_process GoP typing): a cut closes the pending mini-GoP at
+        # its buffered tail and re-keys on the cut frame
+        cut = getattr(self.enc, "enable_scenecut", False) and \
+            self.enc._is_scene_cut(y)
+        if getattr(self.enc, "enable_scenecut", False):
+            self.enc._prev_src_y = np.asarray(y)[::2, ::2].astype(np.int32)
+        if self._is_key(d) or cut:
+            # drain the pipeline: dispatch the buffered tail FIRST so its
+            # device search computes under the pending GoP's host walks,
+            # then walk both in order, then stash the key. The key's
+            # ENCODE is deferred into the walk of the mini-GoP that
+            # follows it, so its q can come from the same TPL r0 model
+            # that ladders the GoP (the lookahead-driven kf_boost of
+            # ref rc_process.c crf_qindex_calc; the dispenser sees the
+            # frames the key's quality will propagate into).
+            tail = self._dispatch_gop()
+            out.extend(self._emit_pending_key())
+            out.extend(self._finish_pending())
+            if tail is not None:
+                out.extend(self._walk_gop(tail))
+            from svt_av1_psy_tpu_torch.models.intra_encoder import _pad_to
+            dtype = np.uint8 if getattr(self.enc, "bd", 8) == 8 \
+                else np.uint16
+            src = _pad_to(np.asarray(y), self.enc.pah,
+                          self.enc.paw).astype(dtype)
+            self._key_pending = (d, (y, u, v), src)
+            self._disp_base_display = d
+            self._disp_base_src = src
+            return out
+        self._buf.append((d, (y, u, v)))
+        # pre-dispatch the pending KEY's temporal filter as soon as its
+        # forward window (the next 2 sources) is buffered: dispatched at
+        # walk time it queues BEHIND the next GoP's search on the device
+        # and its fetch sits on the critical path (measured ~7-10 s)
+        if (self.tf_strength and self._key_pending is not None and
+                len(self._key_pending) == 3 and len(self._buf) >= 2):
+            kd, kfuv, ksrc = self._key_pending
+            win = [self._buf[0][1], self._buf[1][1], kfuv]
+            tok = self._tf_device_dispatch(win)
+            self._key_pending = (kd, kfuv, ksrc, tok)
+        close = len(self._buf) >= self.M
+        if self.dynamic_gop and not close:
+            cur = np.asarray(y)[::4, ::4].astype(np.int32)
+            bd_sh = getattr(self.enc, "bd", 8) - 8
+            if self._dyn_prev is not None:
+                self._mads.append(
+                    float(np.abs(cur - self._dyn_prev).mean()) /
+                    (1 << bd_sh))
+            self._dyn_prev = cur
+            n = len(self._buf)
+            if n < self.M and n in (2, 4, 8, 16) and self._mads:
+                window = self._mads[-n:]
+                if sum(window) / len(window) > self.dyn_threshold:
+                    close = True
+        if close:
+            # pipeline step: dispatch this GoP's device search (async),
+            # then run the PREVIOUS GoP's host walks while the device
+            # computes. A stashed key rides the new task: it encodes at
+            # the top of that task's walk, with its q from the GoP's
+            # TPL r0 ladder.
+            task = self._dispatch_gop()
+            out.extend(self._finish_pending())
+            self._pending = task
+        return out
+
+    def flush(self) -> list[RaPacket]:
+        # same dispatch-before-walk ordering as the key-boundary drain
+        tail = self._dispatch_gop()
+        out = self._finish_pending()
+        if tail is not None:
+            out.extend(self._walk_gop(tail))
+        out.extend(self._emit_pending_key())
+        return out
+
+    def close(self) -> None:
+        """Join the background warm-up thread and the encoder's deferred
+        filter threads (the deinit drain of ref enc_handle.c:2748).
+        Idempotent; safe before or after flush()."""
+        th = getattr(self, "_warm_thread", None)
+        if th is not None:
+            th.join()
+            self._warm_thread = None
+        close = getattr(self.enc, "close", None)
+        if close is not None:
+            close()
+
+    def _emit_pending_key(self) -> list[RaPacket]:
+        """Fallback for a stashed key with NO mini-GoP after it (flush
+        right after the key, or back-to-back keys): encode at the
+        default kf fraction — there is no dependency information."""
+        if self._key_pending is None:
+            return []
+        d, fuv = self._key_pending[0], self._key_pending[1]
+        tok = self._key_pending[3] if len(self._key_pending) > 3 else None
+        self._key_pending = None
+        self.enc.kf_qindex = None
+        return [self._encode_base_key(d, fuv, tf_tok=tok)]
+
+    # -- internals ---------------------------------------------------------
+    def _encode_base_key(self, d: int, fuv, future: dict | None = None,
+                         tf_tok=None) -> RaPacket:
+        y, u, v = fuv
+        if self.tf_strength and tf_tok is not None:
+            # pre-dispatched at push time (the forward-window frames
+            # arrived long before the walk): only the fetch remains
+            from svt_av1_psy_tpu_torch.utils.trace import stage as _tstage
+            with _tstage("temporal_filter"):
+                y, u, v = self._tf_device_fetch(tf_tok)
+        elif self.tf_strength and future:
+            # key-frame alt-ref filter over FUTURE sources (the
+            # reference filters I-frames with a forward window, ref
+            # temporal_filtering.c key-frame path) — on device, one
+            # fused call (the host block-loop filter costs seconds per
+            # 1080p key)
+            win = [future[dd] for dd in sorted(future) if dd > d][:2] \
+                + [(y, u, v)]
+            if len(win) > 1:
+                from svt_av1_psy_tpu_torch.utils.trace import stage as _tstage
+                with _tstage("temporal_filter"):
+                    y, u, v = self._tf_device(win)
+        f = self.enc._encode_key(y, u, v, order_hint=d)
+        self._base_slot = 0
+        self._base_display = d
+        # NOTE: _disp_base_* is set at key STASH time (push), not here —
+        # by emit time the next GoP's dispatch has already advanced it
+        self._recon_by_display[d] = (f.recon_y, f.recon_u, f.recon_v)
+        return RaPacket(f.payload, d, (f.recon_y, f.recon_u, f.recon_v),
+                        qindex=getattr(self.enc, '_last_coded_q', -1),
+                        is_key=True)
+
+    def _tf_device(self, win):
+        """Device temporal filter of win[-1] (center LAST) against the
+        other window frames; returns cropped (y, u, v) uint arrays."""
+        return self._tf_device_fetch(self._tf_device_dispatch(win))
+
+    def _tf_device_fetch(self, tok):
+        (fy, fu, fv), (H, W) = tok
+        dtype = np.uint8 if getattr(self.enc, "bd", 8) == 8 else np.uint16
+        ch, cw = (H + 1) // 2, (W + 1) // 2
+        return (np.asarray(fy)[:H, :W].astype(dtype),
+                np.asarray(fu)[:ch, :cw].astype(dtype),
+                np.asarray(fv)[:ch, :cw].astype(dtype))
 
     def _tf_device_dispatch(self, win):
         """Launch the key frame's temporal filter of win[-1] (center LAST)
@@ -65,6 +344,33 @@ class RaDriver(ra.RaDriver):
                                float(self.tf_strength), enc.bd)
         return tuple(HostCopy(a) for a in out), (H, W)
 
+    def _free_slots(self, in_use):
+        return [s for s in range(8) if s not in in_use]
+
+    def _encode_inter(self, d, fuv, ref_slot, refresh, show, depth,
+                      ref_slot2=None):
+        tq = self._tpl_q.get(d) if getattr(self, "_tpl_q", None) else None
+        ra = {"ref_slot": ref_slot, "refresh": refresh,
+              "order_hint": d, "show": show, "layer": depth,
+              "base_q": self._layer_q(depth) if tq is None else tq,
+              "ref_slot2": ref_slot2,
+              # MRP GOLDEN = the mini-GoP base anchor's slot (disabled
+              # per frame when it coincides with LAST/ALTREF or no
+              # refsel map was produced)
+              "ref_slot3": getattr(self, "_gop_base_slot", None)}
+        pre = getattr(self, "_pre_by_d", None)
+        if pre:
+            ra["pre"] = pre.pop(d, None)
+        filt = getattr(self, "_filtered_src", None)
+        if filt and d in filt:
+            # anchor was temporal-filtered on device; decide/HME ran on
+            # the filtered plane, so the walk codes the same source
+            fuv = filt[d][0]
+        y, u, v = fuv
+        f = self.enc._encode_p(y, u, v, ra=ra)
+        self._recon_by_display[d] = _LazyRecon(f)
+        return f
+
     # -- GoP-batched device search (pipelined) -----------------------------
     def _dispatch_gop(self) -> dict | None:
         """Phase A of a mini-GoP, as the reference's: consume the source
@@ -79,9 +385,9 @@ class RaDriver(ra.RaDriver):
         self._mads = []
         if not buf:
             return None
-        from svt_av1_psy_tpu.models.intra_encoder import _pad_to
-        from svt_av1_psy_tpu.ops.quant import ac_q
-        from svt_av1_psy_tpu.utils.trace import stage as _tstage
+        from svt_av1_psy_tpu_torch.models.intra_encoder import _pad_to
+        from svt_av1_psy_tpu_torch.ops.quant import ac_q
+        from svt_av1_psy_tpu_torch.utils.trace import stage as _tstage
 
         enc = self.enc
         pah, paw = enc.pah, enc.paw
@@ -226,13 +532,27 @@ class RaDriver(ra.RaDriver):
                 "tf": tf_on, "tf_n": tf_n if tf_on else 0,
                 "tf_mid": tf_mid if tf_on else None, "key": key}
 
+    def _finish_pending(self) -> list[RaPacket]:
+        task, self._pending = self._pending, None
+        if task is None:
+            return []
+        return self._walk_gop(task)
+
+    def _encode_gop(self) -> list[RaPacket]:
+        """Non-pipelined fallback: dispatch + walk in one step (GoP
+        tails at flush/key boundaries)."""
+        task = self._dispatch_gop()
+        if task is None:
+            return []
+        return self._walk_gop(task)
+
     def _walk_gop(self, task) -> list[RaPacket]:
         """Phase B: fetch the GoP's packed device results and run the
         host commit walks (ARF + pyramid recursion + show_existing
         emission)."""
         from svt_av1_psy_tpu_torch.ops.torch_backend import (
             gop_search_tf_unpack, gop_search_unpack)
-        from svt_av1_psy_tpu.utils.trace import stage as _tstage
+        from svt_av1_psy_tpu_torch.utils.trace import stage as _tstage
 
         enc = self.enc
         pah, paw = enc.pah, enc.paw
@@ -338,7 +658,7 @@ class RaDriver(ra.RaDriver):
         # pending key is the GoP base b: its q comes from the same r0
         # model (the kf_boost role) before it encodes below.
         if self.tpl_strength > 0:
-            from svt_av1_psy_tpu.models.tpl import tpl_gop_q
+            from svt_av1_psy_tpu_torch.models.tpl import tpl_gop_q
             with _tstage("tpl_gop_q"):
                 fy_map = dict(task["padded"])
                 fy_map[arf_d] = arf_padded
@@ -390,7 +710,7 @@ class RaDriver(ra.RaDriver):
         self._rec_pyramid(b, arf_d, self._base_slot, arf_slot, 1,
                           frames, packets, in_use)
 
-        from svt_av1_psy_tpu.bitstream.headers import \
+        from svt_av1_psy_tpu_torch.bitstream.headers import \
             show_existing_temporal_unit
         packets.append(RaPacket(show_existing_temporal_unit(arf_slot),
                                 arf_d, self._recon_by_display[arf_d]))
@@ -399,3 +719,55 @@ class RaDriver(ra.RaDriver):
         self._base_q_coded = self._tpl_q.get(arf_d) \
             if getattr(self, "_tpl_q", None) else None
         return packets
+
+    def _tpl_plan(self, b, arf_d):
+        """Encode-order (display, lo_ref, hi_ref, depth) tuples mirroring
+        _rec_pyramid's frame-level reference choices (references always
+        precede their dependents — the property tpl_gop_q's backward
+        induction relies on)."""
+        plan = [(arf_d, b, b, 0)]
+
+        def rec(lo, hi, depth):
+            if hi - lo < 2:
+                return
+            mid = (lo + hi) // 2
+            plan.append((mid, lo, hi, depth))
+            rec(lo, mid, depth + 1)
+            rec(mid, hi, depth + 1)
+
+        rec(b, arf_d, 1)
+        return plan
+
+    def _rec_pyramid(self, lo, hi, lo_slot, hi_slot, depth, frames,
+                     packets, in_use):
+        if hi - lo < 2:
+            return
+        mid = (lo + hi) // 2
+        # bidirectional: LAST = past anchor, ALTREF = future anchor
+        # (compound NEAREST/NEW pairs + skip_mode in the walk)
+        ref, ref2 = lo_slot, (hi_slot if hi_slot != lo_slot else None)
+        if hi - lo == 2:
+            # leaf: shown in its own TU, never referenced
+            f = self._encode_inter(mid, frames[mid], ref, 0, True, depth,
+                                   ref_slot2=ref2)
+            packets.append(RaPacket(f.payload,
+                                    mid, self._recon_by_display[mid],
+                                    qindex=getattr(self.enc,
+                                                   '_last_coded_q', -1)))
+            return
+        mid_slot = self._free_slots(in_use)[0]
+        in_use.add(mid_slot)
+        f = self._encode_inter(mid, frames[mid], ref, 1 << mid_slot,
+                               False, depth, ref_slot2=ref2)
+        packets.append(RaPacket(f.payload, -1, None,
+                                qindex=getattr(self.enc,
+                                               '_last_coded_q', -1)))
+        self._rec_pyramid(lo, mid, lo_slot, mid_slot, depth + 1, frames,
+                          packets, in_use)
+        from svt_av1_psy_tpu_torch.bitstream.headers import \
+            show_existing_temporal_unit
+        packets.append(RaPacket(show_existing_temporal_unit(mid_slot),
+                                mid, self._recon_by_display[mid]))
+        self._rec_pyramid(mid, hi, mid_slot, hi_slot, depth + 1, frames,
+                          packets, in_use)
+        in_use.discard(mid_slot)

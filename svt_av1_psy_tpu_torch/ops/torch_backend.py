@@ -13,7 +13,8 @@ unpackers are copied here so that the port never imports jax_backend
 
 Constants that the JAX programs bake into their traces (smooth weights,
 directional gather maps, SEARCH_MODE_ORDER) are built as tensors from the
-same numpy sources by block_tables(), once per (size, device).
+same numpy sources (the port's copies of constants and ops/intra.py) by
+block_tables(), once per (size, device).
 """
 
 from __future__ import annotations
@@ -24,9 +25,9 @@ import os
 import numpy as np
 import torch
 
-from svt_av1_psy_tpu.constants import PredMode
-from svt_av1_psy_tpu.ops.intra import (_SM_WEIGHTS, _dr_maps_z1, _dr_maps_z2,
-                                       _dr_maps_z3)
+from svt_av1_psy_tpu_torch.constants import PredMode
+from svt_av1_psy_tpu_torch.ops.intra import (_SM_WEIGHTS, _dr_maps_z1,
+                                             _dr_maps_z2, _dr_maps_z3)
 
 N_CANDS = 3
 

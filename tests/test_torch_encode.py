@@ -3,7 +3,8 @@
 The port's Encoder (device search in PyTorch, on the CPU here) must give
 the JAX package's payload bytes frame for frame on the SVT_HME_PALLAS=1
 route and on the default (hme_search2) route, decode dav1d-exactly to its
-own recon, never import jax, refuse a GPU it does not have, and route
+own recon, never import jax or the JAX package (a subprocess with both
+blocked runs every route and the CLI), refuse a GPU it does not have, and route
 every single-device config as the reference does (only the multi-device
 decide raises NotImplementedError).
 """
@@ -21,10 +22,12 @@ import torch
 import svt_av1_psy_tpu.models.fast_intra as ref_fi
 from svt_av1_psy_tpu import api as ref_api
 from svt_av1_psy_tpu.decoder.dav1d import decode_obus
+from svt_av1_psy_tpu.models import intra_encoder as ref_ie
 from svt_av1_psy_tpu_torch.api import Encoder, EncoderConfig, PredStructure
 from svt_av1_psy_tpu_torch.models import fast_intra as port_fi
 from svt_av1_psy_tpu_torch.models import intra_encoder as port_ie
 from svt_av1_psy_tpu_torch.models import ra as port_ra
+from test_torch_standalone import ref_cfg, reference_source
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT / "tools"))
@@ -80,7 +83,7 @@ def default_route(monkeypatch):
 def test_port_encode_matches_jax(pallas_route, dims):
     w, h = dims
     frames = _frames(w, h)
-    want = _encode(ref_api.Encoder(LD_CFG, w, h), frames)
+    want = _encode(ref_api.Encoder(ref_cfg(LD_CFG), w, h), frames)
     got = _encode(Encoder(LD_CFG, w, h, device="cpu"), frames)
     assert [o.payload for o in got] == [o.payload for o in want]
     decoded = decode_obus(b"".join(o.payload for o in got))
@@ -99,17 +102,18 @@ attempts = []
 
 
 class BlockJax(importlib.abc.MetaPathFinder):
+    # jax, and every module of the JAX package (that exact first
+    # component: the port's own modules pass)
     def find_spec(self, name, path, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib"):
+        if name.split(".")[0] in ("jax", "jaxlib", "svt_av1_psy_tpu"):
             attempts.append(name)
-            raise ImportError(f"jax is blocked in this process: {name}")
+            raise ImportError(f"blocked in this process: {name}")
         return None
 
 
 sys.meta_path.insert(0, BlockJax())
-sys.path.insert(0, "tools")
 import numpy as np
-from make_test_clip import make_frame
+from svt_av1_psy_tpu_torch.utils.test_clip import make_frame
 from svt_av1_psy_tpu_torch.api import Encoder, EncoderConfig, PredStructure
 
 import threading
@@ -156,8 +160,31 @@ enc = Encoder(cfg, 176, 144, device="cpu")
 assert enc.encode(text, uv, uv).payload
 enc.close()
 assert sc_keys == [1], sc_keys
+# preset 3: the full-RD IntraEncoder
+cfg = EncoderConfig(enc_mode=3, qp=30, intra_period_length=-1,
+                    pred_structure=PredStructure.LOW_DELAY_B)
+small = make_frame(192, 128, 0, 8, 0.02, np.random.default_rng(7))
+enc = Encoder(cfg, 192, 128, device="cpu")
+assert enc.encode(*small).payload
+enc.close()
+# the CLI: low delay with the key-frame TF and the TPL lookahead
+import os
+import tempfile
+from svt_av1_psy_tpu_torch.app.cli import main
+from svt_av1_psy_tpu_torch.bitstream.ivf import read_ivf
+from svt_av1_psy_tpu_torch.io.y4m import Y4mWriter
+with tempfile.TemporaryDirectory() as tmp:
+    clip, out = os.path.join(tmp, "in.y4m"), os.path.join(tmp, "out.ivf")
+    with Y4mWriter(clip, 176, 144, 30, 1, 8) as wr:
+        for f in frames[:4]:
+            wr.write_frame(*f)
+    assert main(["-i", clip, "-b", out, "--keyint", "0", "--preset", "10",
+                 "--crf", "30", "--device", "cpu", "--progress", "0"]) == 0
+    assert len(read_ivf(out)[1]) == 4
 assert not attempts, attempts
-assert "jax" not in sys.modules
+bad = [m for m in sys.modules
+       if m.split(".")[0] in ("jax", "jaxlib", "svt_av1_psy_tpu")]
+assert not bad, bad
 print("NO_JAX_OK")
 """
 
@@ -192,7 +219,8 @@ def test_unported_routes_raise(change, route):
     presets <= 3 and --scm 1 build the port's IntraEncoder. No route
     raises any more."""
     cfg = LD_CFG.replace(**change)
-    ref = ref_api.Encoder(cfg.replace(hierarchical_levels=0), 176, 144)
+    ref = ref_api.Encoder(ref_cfg(cfg.replace(hierarchical_levels=0)), 176,
+                         144)
     enc = Encoder(cfg, 176, 144, device="cpu")
     try:
         assert enc._enc.device == torch.device("cpu")
@@ -202,9 +230,12 @@ def test_unported_routes_raise(change, route):
             assert enc.cfg.hierarchical_levels == 5
         else:
             assert enc._ra is None
+        # the port's classes are copies of the reference's, not subclasses
+        assert all(c.__module__.split(".")[0] != "svt_av1_psy_tpu"
+                   for c in type(enc._enc).__mro__)
         if route == "full_rd":
             assert type(enc._enc) is port_ie.IntraEncoder
-            assert type(ref._enc) is port_ie.IntraEncoder.__base__
+            assert type(ref._enc) is ref_ie.IntraEncoder
         else:
             assert type(enc._enc) is port_fi.FastIntraEncoder
             assert enc._enc.enable_lr == ref._enc.enable_lr == \
@@ -218,7 +249,7 @@ def test_hme_search2_route_raises(default_route):
     """With no route switch the P frames run hme_search2, as in the JAX
     package: the same payload bytes."""
     frames = _frames(176, 144)
-    want = _encode(ref_api.Encoder(LD_CFG, 176, 144), frames)
+    want = _encode(ref_api.Encoder(ref_cfg(LD_CFG), 176, 144), frames)
     got = _encode(Encoder(LD_CFG, 176, 144, device="cpu"), frames)
     assert [o.payload for o in got] == [o.payload for o in want]
 
@@ -245,11 +276,11 @@ def test_unported_methods_raise():
         assert got.lr_type == want.lr_type and got.units == want.units
 
 
-def _outside_device_block(method):
+def _outside_device_block(source):
     """Source lines of _encode_p outside the low-delay branch of its
     device-search block, blank lines and the reference's jax imports
     dropped."""
-    lines = [ln for ln in inspect.getsource(method).split("\n")
+    lines = [ln for ln in source.split("\n")
              if ln.strip() and ln.strip() not in ("import jax",
                                                   "import jax.numpy as jnp")]
     i = next(i for i, ln in enumerate(lines)
@@ -261,8 +292,10 @@ def _outside_device_block(method):
 
 
 def test_encode_p_copy_has_not_drifted():
-    ref = _outside_device_block(ref_fi.FastIntraEncoder._encode_p)
-    port = _outside_device_block(port_fi.FastIntraEncoder._encode_p)
+    ref = _outside_device_block(
+        inspect.getsource(ref_fi.FastIntraEncoder._encode_p))
+    port = _outside_device_block(
+        reference_source(port_fi.FastIntraEncoder._encode_p))
     assert len(ref) > 400
     assert port == ref
 

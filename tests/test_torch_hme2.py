@@ -20,6 +20,7 @@ import svt_av1_psy_tpu.models.fast_intra as ref_fi
 from svt_av1_psy_tpu import api as ref_api
 from svt_av1_psy_tpu_torch.api import Encoder, EncoderConfig, PredStructure
 from svt_av1_psy_tpu_torch.ops import torch_backend as tb
+from test_torch_standalone import ref_cfg
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent
                        / "tools"))
@@ -178,7 +179,8 @@ def test_default_route_encode_matches_jax(globk):
     cfg = EncoderConfig(enc_mode=10, qp=30, intra_period_length=-1,
                         pred_structure=PredStructure.LOW_DELAY_B)
     out = []
-    for enc in (ref_api.Encoder(cfg, w, h), Encoder(cfg, w, h, device="cpu")):
+    for enc in (ref_api.Encoder(ref_cfg(cfg), w, h),
+                Encoder(cfg, w, h, device="cpu")):
         try:
             out.append([enc.encode(*f).payload for f in frames])
         finally:

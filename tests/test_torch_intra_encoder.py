@@ -30,6 +30,7 @@ from svt_av1_psy_tpu_torch.api import Encoder, EncoderConfig, PredStructure
 from svt_av1_psy_tpu_torch.models import fast_intra as port_fi
 from svt_av1_psy_tpu_torch.models import intra_encoder as port_ie
 from svt_av1_psy_tpu_torch.ops import torch_backend as tb
+from test_torch_standalone import ref_cfg, reference_source
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT / "tools"))
@@ -182,7 +183,7 @@ def test_screen_content_key_matches_jax(sc_keys, ra, n):
     equals the JAX package's byte for byte."""
     frames = [_text_frame(W, H, t) for t in range(n)]
     cfg = RA_CFG if ra else LD_CFG
-    want = _encode(ref_api.Encoder(cfg, W, H), frames, ra)
+    want = _encode(ref_api.Encoder(ref_cfg(cfg), W, H), frames, ra)
     got = _encode(Encoder(cfg, W, H, device="cpu"), frames, ra)
     assert sc_keys == [0]
     assert [o[:2] for o in got] == [o[:2] for o in want]
@@ -202,7 +203,7 @@ def test_full_rd_route_matches_jax(change, text):
     frames = [_text_frame(w, h, t) for t in range(2)] if text \
         else _natural(2, w, h)
     cfg = LD_CFG.replace(**change)
-    want = _encode(ref_api.Encoder(cfg, w, h), frames, False)
+    want = _encode(ref_api.Encoder(ref_cfg(cfg), w, h), frames, False)
     enc = Encoder(cfg, w, h, device="cpu")
     assert type(enc._enc) is port_ie.IntraEncoder
     assert enc._enc.device == CPU
@@ -216,7 +217,7 @@ def test_preset3_pyramid_gets_no_ra_driver():
     the reference builds no RaDriver there, and neither does the port."""
     cfg = EncoderConfig(enc_mode=3, qp=30, intra_period_length=-1,
                         hierarchical_levels=5)
-    ref = ref_api.Encoder(cfg, W, H)
+    ref = ref_api.Encoder(ref_cfg(cfg), W, H)
     enc = Encoder(cfg, W, H, device="cpu")
     try:
         assert ref._ra is None and enc._ra is None
@@ -229,43 +230,37 @@ def test_preset3_pyramid_gets_no_ra_driver():
 
 # --- drift guards ---------------------------------------------------------
 
-def _body(fn, drop):
-    """ast dumps of the statements of fn, its docstring dropped, with
-    every `device=` keyword removed from its calls and every statement
-    for which drop(stmt) holds left out."""
-    tree = ast.parse(textwrap.dedent(inspect.getsource(fn))).body[0]
+def _body(source):
+    """ast dumps of the statements of a function's source, its docstring
+    dropped, with every `device=` keyword removed from its calls."""
+    tree = ast.parse(textwrap.dedent(source)).body[0]
     body = tree.body[1:] if isinstance(tree.body[0], ast.Expr) else tree.body
     for node in ast.walk(tree):
         if isinstance(node, ast.Call):
             node.keywords = [k for k in node.keywords if k.arg != "device"]
-    return [ast.dump(s) for s in body if not drop(s)]
+    return [ast.dump(s) for s in body]
 
 
 def test_encode_key_sc_copy_has_not_drifted():
-    """The port's _encode_key_sc is the reference's but for the import of
-    IntraEncoder and the device it builds it on."""
-    def imports_intra_encoder(s):
-        return isinstance(s, ast.ImportFrom) and \
-            s.module == "svt_av1_psy_tpu.models.intra_encoder"
-
-    ref = _body(ref_fi.FastIntraEncoder._encode_key_sc,
-                imports_intra_encoder)
-    port = _body(port_fi.FastIntraEncoder._encode_key_sc, lambda s: False)
+    """The port's _encode_key_sc is the reference's but for the device it
+    builds IntraEncoder on."""
+    ref = _body(inspect.getsource(ref_fi.FastIntraEncoder._encode_key_sc))
+    port = _body(reference_source(port_fi.FastIntraEncoder._encode_key_sc))
     assert len(ref) > 30 and port == ref
 
 
 def test_decide_split_tree_copy_has_not_drifted():
     """The host split tree of _decide (from the rate bias on) is the
     reference's, line for line."""
-    def tail(fn):
-        lines = [ln.strip() for ln in inspect.getsource(fn).split("\n")
+    def tail(source):
+        lines = [ln.strip() for ln in source.split("\n")
                  if ln.strip()]
         return lines[next(i for i, ln in enumerate(lines)
                           if ln.startswith("bias = ")):]
 
-    ref = tail(ref_ie.IntraEncoder._decide)
+    ref = tail(inspect.getsource(ref_ie.IntraEncoder._decide))
     assert len(ref) > 10
-    assert tail(port_ie.IntraEncoder._decide) == ref
+    assert tail(reference_source(port_ie.IntraEncoder._decide)) == ref
 
 
 # --- on the card ----------------------------------------------------------

@@ -33,6 +33,7 @@ from svt_av1_psy_tpu.models import lr_search as ref_lr
 from svt_av1_psy_tpu_torch.api import Encoder, EncoderConfig, PredStructure
 from svt_av1_psy_tpu_torch.models import fast_intra as port_fi
 from svt_av1_psy_tpu_torch.models import lr_search as port_lr
+from test_torch_standalone import ref_cfg, reference_source
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT / "tools"))
@@ -205,7 +206,7 @@ def test_preset6_encode_matches_jax(lr_decisions, name, dims, n):
     w, h = dims
     cfg, ra = PRESET6[name], name.startswith("RA")
     frames = _frames(w, h, n)
-    want = _encode(ref_api.Encoder(cfg, w, h), frames, ra)
+    want = _encode(ref_api.Encoder(ref_cfg(cfg), w, h), frames, ra)
     enc = Encoder(cfg, w, h, device="cpu")
     assert enc._enc.enable_lr
     got = _encode(enc, frames, ra)
@@ -222,19 +223,19 @@ def test_preset6_encode_matches_jax(lr_decisions, name, dims, n):
 
 def test_lr_apply_and_search_copy_has_not_drifted():
     """The port's _lr_apply_and_search is the reference's but for the
-    import of DeviceLrSearch and the device it builds it on."""
-    def body(fn, drop_import):
-        tree = ast.parse(textwrap.dedent(inspect.getsource(fn))).body[0]
+    device it builds DeviceLrSearch on."""
+    def body(fn, source):
+        tree = ast.parse(textwrap.dedent(source(fn))).body[0]
         for node in ast.walk(tree):
             if isinstance(node, ast.Call):
                 node.keywords = [k for k in node.keywords
                                  if k.arg != "device"]
-        return [ast.dump(s) for s in tree.body[1:]           # no docstring
-                if not (drop_import and isinstance(s, ast.ImportFrom) and
-                        s.module == "svt_av1_psy_tpu.models.lr_search")]
+        return [ast.dump(s) for s in tree.body[1:]]         # no docstring
 
-    ref = body(ref_fi.FastIntraEncoder._lr_apply_and_search, True)
-    port = body(port_fi.FastIntraEncoder._lr_apply_and_search, False)
+    ref = body(ref_fi.FastIntraEncoder._lr_apply_and_search,
+               inspect.getsource)
+    port = body(port_fi.FastIntraEncoder._lr_apply_and_search,
+                reference_source)
     assert len(ref) > 10 and port == ref
 
 

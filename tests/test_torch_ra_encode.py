@@ -26,6 +26,7 @@ from svt_av1_psy_tpu.models import ra as ref_ra
 from svt_av1_psy_tpu_torch import api as port_api
 from svt_av1_psy_tpu_torch.api import Encoder, EncoderConfig
 from svt_av1_psy_tpu_torch.models import ra as port_ra
+from test_torch_standalone import ref_cfg, reference_source
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT / "tools"))
@@ -84,7 +85,7 @@ def test_ra_encode_matches_jax(dims, levels, n, keyint):
     w, h = dims
     frames = _frames(w, h, n)
     cfg = _cfg(levels, keyint)
-    want = _encode(ref_api.Encoder(cfg, w, h), frames)
+    want = _encode(ref_api.Encoder(ref_cfg(cfg), w, h), frames)
     got = _encode(Encoder(cfg, w, h, device="cpu"), frames)
     assert [p.payload for p in got] == [p.payload for p in want]
     assert [p.display_idx for p in got] == [p.display_idx for p in want]
@@ -113,12 +114,11 @@ def test_gop_meshes_raise():
 
 # --- drift guards ------------------------------------------------------
 
-def _lines_between(method, regions):
-    """Non-blank source lines of `method` with the lines strictly between
+def _lines_between(source, regions):
+    """Non-blank lines of a method's source with the lines strictly between
     each (start, end) pair of anchor lines removed. Both anchors must be
     lines that the reference and the port share."""
-    lines = [ln for ln in inspect.getsource(method).split("\n")
-             if ln.strip()]
+    lines = [ln for ln in source.split("\n") if ln.strip()]
     for start, end in regions:
         i0 = next(i for i, ln in enumerate(lines) if start in ln)
         i1 = next(i for i in range(i0 + 1, len(lines)) if end in lines[i])
@@ -148,26 +148,36 @@ _WALK_REGIONS = [
     ("_walk_gop", _WALK_REGIONS, 130),
 ])
 def test_ra_copies_have_not_drifted(name, regions, min_lines):
-    ref = _lines_between(getattr(ref_ra.RaDriver, name), regions)
-    port = _lines_between(getattr(port_ra.RaDriver, name), regions)
+    ref = _lines_between(inspect.getsource(getattr(ref_ra.RaDriver, name)),
+                         regions)
+    port = _lines_between(reference_source(getattr(port_ra.RaDriver, name)),
+                          regions)
     assert len(ref) > min_lines
     assert port == ref
 
 
 def test_ra_routing_copy_has_not_drifted():
-    """Encoder._route_random_access holds the statements of the RA branch
-    of the reference routing (its RaDriver import aside)."""
-    tree = ast.parse(textwrap.dedent(inspect.getsource(ref_api.Encoder)))
-    branch = next(node for node in ast.walk(tree)
-                  if isinstance(node, ast.If) and
-                  "RANDOM_ACCESS" in ast.unparse(node.test) and
-                  "RaDriver" in ast.unparse(node.body[0]))
-    ref = [ast.dump(s) for s in branch.body
-           if not isinstance(s, ast.ImportFrom)]
-    port_fn = ast.parse(textwrap.dedent(inspect.getsource(
-        port_api.Encoder._route_random_access))).body[0]
-    port = [ast.dump(s) for s in port_fn.body[1:]]        # no docstring
-    assert len(ref) == 3 and port == ref
+    """The port's Encoder.__init__ is the reference routing, its RA branch
+    included, but for the device: the `device` argument, the statement
+    that resolves it and the `device=` it hands to the encoder classes."""
+    def body(fn, source):
+        tree = ast.parse(textwrap.dedent(source(fn))).body[0]
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Call):
+                node.keywords = [k for k in node.keywords
+                                 if k.arg != "device"]
+        tree.args.kwonlyargs, tree.args.kw_defaults = [], []
+        return [ast.dump(s) for s in tree.body
+                if "self.device" not in ast.unparse(s).split("\n")[0]], \
+            ast.dump(tree.args)
+
+    ref = body(ref_api.Encoder.__init__, inspect.getsource)
+    port = body(port_api.Encoder.__init__, reference_source)
+    assert len(ref[0]) > 15 and port == ref
+    branch = [s for s in ast.walk(ast.parse(textwrap.dedent(
+        inspect.getsource(port_api.Encoder.__init__))))
+        if isinstance(s, ast.If) and "RANDOM_ACCESS" in ast.unparse(s.test)]
+    assert branch and "RaDriver" in ast.unparse(branch[0])
 
 
 def test_port_ra_starts_no_warmup():
