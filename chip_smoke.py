@@ -28,11 +28,18 @@ Phases (each ends in torch.cuda.synchronize(); any failure exits non-zero
 and prints no result):
   1. the card's name and power limit (nvidia-smi);
   2. build K1 (csrc/hme_sad_scan.cu) with nvcc, timed;
-  3. K1 against the plain hme_search on 1088x1920 planes (random,
-     shifted + noise, flat where every offset ties): byte-equal, with
-     both times (CUDA events, median of several runs), the kernel's time
-     alone, and its bound (the card's least time for the same work: its
-     operations at the int8 peak, its bytes at the memory rate);
+  3. K1 against the plain hme_search on uint8 and 10-bit (int16) planes,
+     at 1088x1920 with search range 12 and at 144x176 with ranges 0, 4,
+     12 and 15 (random, shifted + noise, flat where every offset ties):
+     byte-equal; int32 planes give the same; one call on uint8 or int16
+     planes is one CUDA kernel and no PyTorch op but two aten::empty
+     (torch.profiler); both times on an 8-bit 1088x1920 pair (CUDA
+     events over back-to-back calls, in turns plain, K1, K1, plain), K1
+     on a 10-bit pair, the kernel's device time alone (torch.profiler)
+     at both depths and with the pairs rotated through more than the 50
+     MB of L2, and its bound (the card's least time for the same work:
+     its operations at the int8 peak, its bytes, in the pixels' own
+     width, at the memory rate);
   4. the LD encode on the K1 route: K1 must launch once per P frame; fps
      and the SVT_TRACE stage times;
   5. its first frames again on "cpu": the payload bytes must be equal;
@@ -87,6 +94,7 @@ The line before the last is {"kernels": [...]}; the last line is
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import pathlib
@@ -118,8 +126,9 @@ def phase(name: str) -> None:
     print(f"\n== {name}", flush=True)
 
 
-def cuda_ms(torch, fn, reps: int) -> float:
-    """Median device time of fn() in ms, by CUDA events, after a warm-up."""
+def cuda_ms(torch, fn, reps: int, calls: int = 1) -> float:
+    """Median device time of one fn() in ms, by CUDA events around `calls`
+    back-to-back calls, after a warm-up."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -127,23 +136,27 @@ def cuda_ms(torch, fn, reps: int) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(calls):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
 
 
-def hme_pair(np, kind: str, seed: int = 3):
+def hme_pair(np, kind: str, dims=(PAD_H, PAD_W), bd: int = 8, seed: int = 3):
+    """(src, ref) planes: uint8 at bit depth 8, uint16 above."""
     rng = np.random.default_rng(seed)
-    src = rng.integers(0, 256, (PAD_H, PAD_W)).astype(np.uint8)
+    dt = np.uint8 if bd == 8 else np.uint16
+    src = rng.integers(0, 1 << bd, dims).astype(dt)
     if kind == "flat":
-        return np.full_like(src, 77), np.full_like(src, 77)
+        flat = np.full_like(src, 77 << (bd - 8))
+        return flat, flat.copy()
     if kind == "random":
-        return src, rng.integers(0, 256, src.shape).astype(np.uint8)
+        return src, rng.integers(0, 1 << bd, dims).astype(dt)
     ref = np.roll(src, (6, -10), (0, 1))
-    ref = np.clip(ref.astype(np.int16) + rng.integers(-6, 7, ref.shape),
-                  0, 255).astype(np.uint8)
+    noise = rng.integers(-6, 7, ref.shape) << (bd - 8)
+    ref = np.clip(ref.astype(np.int32) + noise, 0, (1 << bd) - 1).astype(dt)
     return src, ref
 
 
@@ -151,28 +164,96 @@ INT8_OPS_PER_S = 1.979e15       # H100 SXM, int8 dense peak (data sheet)
 HBM_BYTES_PER_S = 3.35e12
 
 
-def k1_bound(src, ref, search_range: int):
+def k1_bound(h: int, w: int, bit_depth: int, search_range: int):
     """The least time the card could take for hme_search_kernel's work on
-    one pair: the larger of its operations over the card's fastest rate
-    for 8-bit integers and its bytes over the memory rate. Returns (ms,
-    "operations" or "bytes", operations, bytes, ms by operations, ms by
-    bytes). Operations: per 16x16 block and offset, 64 absolute
+    one (h, w) pair: the larger of its operations over the card's fastest
+    rate for 8-bit integers and its bytes over the memory rate. Returns
+    (ms, "operations" or "bytes", operations, bytes, ms by operations, ms
+    by bytes). Operations: per 16x16 block and offset, 64 absolute
     differences added into a sum (2 each, as a multiply-add counts 2) and
     one compare, plus the rounded 2x2 decimation of both planes (5 per
-    half-res pixel), at 1,979 TOP/s (the pixels are 8-bit). Bytes: both
-    int32 input planes read once, mv (int16 x 2) and sad (int32) written
-    once, at 3.35 TB/s."""
-    h, w = src.shape
+    half-res pixel), at 1,979 TOP/s. Bytes: both pixel planes read once
+    in the width of their pixels (1 byte at bit depth 8, 2 above,
+    whatever type a caller hands over), mv (int16 x 2) and sad (int32)
+    written once, at 3.35 TB/s."""
     blocks = (h // 16) * (w // 16)
     side = 2 * search_range + 1
     ops = blocks * side * side * (64 * 2 + 1) + 2 * (h // 2) * (w // 2) * 5
-    nbytes = src.numel() * src.element_size() + \
-        ref.numel() * ref.element_size() + blocks * (2 * 2 + 4)
+    nbytes = 2 * h * w * (1 if bit_depth == 8 else 2) + blocks * (2 * 2 + 4)
     t_ops = 1e3 * ops / INT8_OPS_PER_S
     t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes), \
         "operations" if t_ops >= t_bytes else "bytes", ops, nbytes, \
         t_ops, t_bytes
+
+
+def k1_checks(np, torch, tb, hme_search_kernel, dev) -> int:
+    """K1 against the plain hme_search: both sizes, both depths, every
+    search range, three kinds of pair, and int32 planes. Returns the
+    largest absolute difference (0 when the kernel is right)."""
+    worst = 0
+    cases = [((PAD_H, PAD_W), 12)] + [((144, 176), r) for r in (0, 4, 12, 15)]
+    for dims, r in cases:
+        for bd in (8, 10):
+            errs = []
+            for pair in ("random", "shifted", "flat"):
+                s, f = (tb.pixel_tensor(x, dev)
+                        for x in hme_pair(np, pair, dims, bd))
+                mv_k, sad_k = hme_search_kernel(s, f, r)
+                mv_p, sad_p = tb.hme_search(s, f, r)
+                torch.cuda.synchronize()
+                if mv_k.dtype != mv_p.dtype or sad_k.dtype != sad_p.dtype \
+                        or mv_k.shape != mv_p.shape:
+                    fail(f"K1 gives {mv_k.dtype} {tuple(mv_k.shape)}, "
+                         f"{sad_k.dtype}; plain {mv_p.dtype} "
+                         f"{tuple(mv_p.shape)}, {sad_p.dtype}")
+                errs.append(max(int((mv_k.int() - mv_p.int()).abs().max()),
+                                int((sad_k - sad_p).abs().max())))
+            print(f"{dims[0]}x{dims[1]} {bd}-bit R {r:2d}: max_abs_err "
+                  f"random/shifted/flat {errs}")
+            worst = max(worst, *errs)
+    s, f = (tb.pixel_tensor(x, dev) for x in hme_pair(np, "shifted", bd=10))
+    want = hme_search_kernel(s, f)
+    for a, b in ((s.int(), f.int()), (s.int(), f)):
+        got = hme_search_kernel(a, b)
+        if not all(torch.equal(x, y) for x, y in zip(got, want)):
+            fail("K1 on int32 planes differs from K1 on int16 planes")
+    print("int32 planes (narrowed to int16 by the wrapper): equal")
+    return worst
+
+
+def k1_profile(torch, fn, calls: int):
+    """`calls` calls of fn() under torch.profiler: (device kernels and
+    copies by name, PyTorch ops by name, device ms per call)."""
+    from torch.profiler import ProfilerActivity, profile
+    cuda = torch.autograd.DeviceType.CUDA
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows = prof.key_averages()
+    device = {r.key: r.count for r in rows if r.device_type == cuda}
+    ops = {r.key: r.count for r in rows
+           if r.device_type != cuda and r.key.startswith("aten::")}
+    ms = sum(r.self_device_time_total for r in rows
+             if r.device_type == cuda) / 1e3 / calls
+    return device, ops, ms
+
+
+def k1_one_launch(torch, hme_search_kernel, s, f, what: str) -> None:
+    """One call of the wrapper must be one device kernel, K1's, and no
+    PyTorch op but the two aten::empty."""
+    device, ops, _ = k1_profile(torch, lambda: hme_search_kernel(s, f), 1)
+    print(f"one call on {what} planes: device kernels {device}; PyTorch "
+          f"ops {ops}")
+    if sum(device.values()) != 1 or \
+            not all("hme_sad_scan" in k for k in device):
+        fail(f"one K1 call on {what} planes launched {device}")
+    if set(ops) - {"aten::empty"} or sum(ops.values()) != 2:
+        fail(f"one K1 call on {what} planes ran the PyTorch ops {ops}")
 
 
 def write_y4m(path, frames) -> None:
@@ -829,57 +910,55 @@ def main() -> None:
     print(f"built {lib.relative_to(ROOT)} in {build_s:.2f} s")
     print((build.BUILD / "hme_sad_scan.log").read_text().strip())
 
-    phase("K1 vs plain hme_search at 1088x1920")
-    k1_err = 0
-    for pair in ("random", "shifted", "flat"):
-        src, ref = hme_pair(np, pair)
-        s, r = tb.plane_tensor(src, dev), tb.plane_tensor(ref, dev)
-        mv_k, sad_k = hme_search_kernel(s, r)
-        mv_p, sad_p = tb.hme_search(s, r)
-        torch.cuda.synchronize()
-        if mv_k.dtype != mv_p.dtype or sad_k.dtype != sad_p.dtype:
-            fail(f"K1 dtypes {mv_k.dtype}, {sad_k.dtype} differ from plain")
-        err = max(int((mv_k.int() - mv_p.int()).abs().max()),
-                  int((sad_k - sad_p).abs().max()))
-        print(f"{pair:8s} max_abs_err {err} (mv {tuple(mv_k.shape)}, "
-              f"sad {tuple(sad_k.shape)})")
-        k1_err = max(k1_err, err)
+    phase("K1 vs plain hme_search: 1088x1920 and 144x176, 8 and 10 bit")
+    k1_err = k1_checks(np, torch, tb, hme_search_kernel, dev)
     if k1_err != 0:
         fail(f"K1 disagrees with the plain hme_search: max_abs_err {k1_err}")
-    # time on the shifted pair, in turns: plain, K1, K1, plain
-    s, r = (tb.plane_tensor(x, dev) for x in hme_pair(np, "shifted"))
+    s, r = (tb.pixel_tensor(x, dev) for x in hme_pair(np, "shifted"))
+    s10, r10 = (tb.pixel_tensor(x, dev)
+                for x in hme_pair(np, "shifted", bd=10))
+    k1_one_launch(torch, hme_search_kernel, s, r, "uint8")
+    k1_one_launch(torch, hme_search_kernel, s10, r10, "int16")
+    # time on the shifted pair, in turns: plain, K1, K1, plain; K1 as 50
+    # back-to-back calls per reading (one call is shorter than the host
+    # takes to make it, so this is the function's time as a caller sees it)
     runs = {"plain": [], "k1": []}
-    fns = {"plain": (tb.hme_search, 5), "k1": (hme_search_kernel, 50)}
+    fns = {"plain": (tb.hme_search, 5, 1), "k1": (hme_search_kernel, 7, 50)}
     for name in ("plain", "k1", "k1", "plain"):
-        fn, reps = fns[name]
-        runs[name].append(cuda_ms(torch, lambda: fn(s, r), reps))
+        fn, reps, calls = fns[name]
+        runs[name].append(cuda_ms(torch, lambda: fn(s, r), reps, calls))
     k1_ms = statistics.median(runs["k1"])
     plain_ms = statistics.median(runs["plain"])
-    decide_ms = cuda_ms(torch, lambda: tb.intra_decide_packed(s, 700), 5)
-    # the CUDA kernel alone, on the planes the wrapper prepares
-    from svt_av1_psy_tpu_torch.kernels.hme import _entry
-    sh, rp = tb.hme_planes(s, r, 12)
-    n16r, n16c = sh.shape[0] // 8, sh.shape[1] // 8
-    k_sad = torch.empty((n16r, n16c), dtype=torch.int32, device=dev)
-    k_mv = torch.empty((n16r, n16c, 2), dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    kernel_ms = cuda_ms(torch, lambda: _entry()(
-        sh.data_ptr(), rp.data_ptr(), k_sad.data_ptr(), k_mv.data_ptr(),
-        n16r, n16c, 12, dev.index, stream), 50)
-    torch.cuda.synchronize()
+    k1_10_ms = cuda_ms(torch, lambda: hme_search_kernel(s10, r10), 7, 50)
+    # the kernel's own device time (torch.profiler). The caller uploads
+    # new planes every frame, so also with the pair rotated through 16
+    # shifted copies (67 MB, more than the 50 MB of L2)
+    kernel_ms = k1_profile(torch, lambda: hme_search_kernel(s, r), 20)[2]
+    kernel_10_ms = k1_profile(torch,
+                              lambda: hme_search_kernel(s10, r10), 20)[2]
+    rotated = [(torch.roll(s, i, 0), torch.roll(r, i, 0)) for i in range(16)]
+    turn = itertools.count()
+    cold_ms = k1_profile(
+        torch, lambda: hme_search_kernel(*rotated[next(turn) % 16]), 32)[2]
+    del rotated
+    s32 = s.to(torch.int32)
+    decide_ms = cuda_ms(torch, lambda: tb.intra_decide_packed(s32, 700), 5)
     bound_ms, bound_by, k1_ops, k1_bytes, ops_ms, bytes_ms = k1_bound(
-        s, r, 12)
-    print(f"K1 hme_search_kernel {k1_ms:.4f} ms, plain hme_search "
-          f"{plain_ms:.4f} ms per 1088x1920 frame (includes the PyTorch "
-          f"decimation + pad); the CUDA kernel alone {kernel_ms:.4f} ms; "
-          f"plain intra_decide_packed {decide_ms:.4f} ms [{card}]")
+        PAD_H, PAD_W, 8, 12)
+    print(f"K1 hme_search_kernel {k1_ms:.4f} ms per 8-bit 1088x1920 pair "
+          f"(turns {runs['k1']}), {k1_10_ms:.4f} ms per 10-bit pair; the "
+          f"CUDA kernel alone (torch.profiler) {kernel_ms:.4f} ms 8-bit, "
+          f"{cold_ms:.4f} ms with the pairs rotated through 67 MB, "
+          f"{kernel_10_ms:.4f} ms 10-bit; plain hme_search {plain_ms:.4f} "
+          f"ms; plain intra_decide_packed {decide_ms:.4f} ms [{card}]")
     print(f"K1 bound: {k1_ops:.4g} operations at 1,979 TOP/s -> "
-          f"{ops_ms:.5f} ms; {k1_bytes:.4g} bytes (int32 planes in) at "
+          f"{ops_ms:.5f} ms; {k1_bytes:.4g} bytes (uint8 planes in) at "
           f"3.35 TB/s -> {bytes_ms:.5f} ms; bound {bound_ms:.5f} ms, set by "
-          f"{bound_by}; share {bound_ms / k1_ms:.4f} of the wrapper's time, "
-          f"{bound_ms / kernel_ms:.4f} of the kernel's alone; no single "
-          f"PyTorch call computes it [{card}]")
-    del sh, rp, k_sad, k_mv
+          f"{bound_by}; share {bound_ms / k1_ms:.4f} of the function's "
+          f"time, {bound_ms / kernel_ms:.4f} of the kernel's alone; the "
+          f"10-bit bound {k1_bound(PAD_H, PAD_W, 10, 12)[0]:.5f} ms; no "
+          f"single PyTorch call computes it [{card}]")
+    del s, r, s10, r10, s32
 
     phase(f"encode {N_FRAMES} frames 1080p LD preset 10 CRF 30 on cuda")
     rng = np.random.default_rng(7)
@@ -1158,7 +1237,9 @@ def main() -> None:
         "launches": cli_launches, "max_abs_err": k1_err,
         "ms": k1_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None,
-        "kernel_only_ms": kernel_ms,
+        "ms_10bit": k1_10_ms, "profiler_kernel_ms": kernel_ms,
+        "profiler_kernel_cold_l2_ms": cold_ms,
+        "profiler_kernel_ms_10bit": kernel_10_ms,
         "launches_per_path": {"ld_k1_route": k1_launches,
                               "cli_ld": cli_launches,
                               "north_star": ns_launches}}]}))

@@ -47,23 +47,35 @@ from svt_av1_psy_tpu_torch.ops.torch_backend import (hme2_unpack,
                                                      intra_decide_packed,
                                                      intra_decide_unpack,
                                                      pack_mv_sad,
+                                                     pixel_tensor,
                                                      plane_tensor)
 from svt_av1_psy_tpu_torch.utils.device import HostCopy, resolve_device
 
 SB = 64
 
 
-def _hme_packed(src, ref):
-    """Full-pel ME of two (H, W) device planes as ONE packed int32 tensor
-    (mv16 | sad16; hme2_unpack decodes it).
-
-    The route follows the environment at each call, as the reference's
-    _jitted_hme reads it (once, at its first call): SVT_HME_PALLAS=1 or
+def _k1_route() -> bool:
+    """Whether the full-pel ME takes the single-level search. The route
+    follows the environment at each call, as the reference's _jitted_hme
+    reads it (once, at its first call): SVT_HME_PALLAS=1 or
     SVT_HME_1LEVEL=1 select the single-level search (the K1 kernel on
     CUDA; its plain version on the CPU); by default the two-level
     hme_search2 runs."""
-    if os.environ.get("SVT_HME_PALLAS") == "1" or \
-            os.environ.get("SVT_HME_1LEVEL") == "1":
+    return os.environ.get("SVT_HME_PALLAS") == "1" or \
+        os.environ.get("SVT_HME_1LEVEL") == "1"
+
+
+def _hme_plane(arr, device):
+    """A numpy pixel plane on `device` as _hme_packed takes it: in its
+    pixel width for K1 (the kernel reads 8-bit and 16-bit pixels as they
+    are), int32 for hme_search2."""
+    return (pixel_tensor if _k1_route() else plane_tensor)(arr, device)
+
+
+def _hme_packed(src, ref):
+    """Full-pel ME of two (H, W) device planes (from _hme_plane) as ONE
+    packed int32 tensor (mv16 | sad16; hme2_unpack decodes it)."""
+    if _k1_route():
         return pack_mv_sad(*hme_search_kernel(src, ref))
     return pack_mv_sad(*hme_search2(src, ref))
 
@@ -75,8 +87,8 @@ def hme_mv_sad(src_p, ref_p, device):
     src_p, ref_p: (H, W) uint8/uint16 numpy planes, H and W multiples of
     16."""
     dev = resolve_device(device)
-    out = HostCopy(_hme_packed(plane_tensor(src_p, dev),
-                               plane_tensor(ref_p, dev)))
+    out = HostCopy(_hme_packed(_hme_plane(src_p, dev),
+                               _hme_plane(ref_p, dev)))
     ph, pw = src_p.shape
     return hme2_unpack(out.numpy(), ph // 16, pw // 16)
 
@@ -831,16 +843,19 @@ class FastIntraEncoder:
                     hme_ref = self._dpb[ra["ref_slot"]][0]
                 else:
                     hme_ref = self._ref_y
-                yp_dev = plane_tensor(yp, self.device)
-                hme_dev = HostCopy(_hme_packed(
-                    yp_dev, plane_tensor(hme_ref[:self.pah, :self.paw],
-                                         self.device)))
+                yp_dev = _hme_plane(yp, self.device)
+
+                def ref_dev(plane):
+                    # recon planes are uint16 at every bit depth: narrowed
+                    # to the source's width, so that K1 sees one pixel type
+                    return _hme_plane(plane[:self.pah, :self.paw].astype(
+                        yp.dtype, copy=False), self.device)
+
+                hme_dev = HostCopy(_hme_packed(yp_dev, ref_dev(hme_ref)))
                 hme2_dev = None
                 if ref2_slot is not None:
-                    hme2_ref = self._dpb[ref2_slot][0]
                     hme2_dev = HostCopy(_hme_packed(
-                        yp_dev, plane_tensor(hme2_ref[:self.pah, :self.paw],
-                                             self.device)))
+                        yp_dev, ref_dev(self._dpb[ref2_slot][0])))
                 split, modes = self._take_decide(y, yp)
                 n16r, n16c = self.pah // 16, self.paw // 16
                 mv16, _sad16 = hme2_unpack(hme_dev.numpy(), n16r, n16c)

@@ -43,17 +43,23 @@ SEARCH_MODE_ORDER = (int(PredMode.DC_PRED), int(PredMode.V_PRED),
 _DIR_ANGLES = (45, 135, 113, 157, 203, 67)
 
 
-def plane_tensor(arr: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A uint8/uint16 numpy pixel plane as a contiguous int32 tensor on
-    `device`. 16-bit planes travel as int16 (AV1 pixels are < 2^12, so the
-    reinterpretation keeps every value) because torch.uint16 has almost no
-    kernels; the int32 widening happens on the device."""
+def pixel_tensor(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A uint8/uint16 numpy pixel plane as a contiguous tensor on `device`
+    in its pixel width: uint8, or int16 for 16-bit planes (AV1 pixels are
+    < 2^12, so the reinterpretation keeps every value; torch.uint16 has
+    almost no kernels)."""
     arr = np.ascontiguousarray(arr)
     if arr.dtype == np.uint16:
         arr = arr.view(np.int16)
     elif arr.dtype != np.uint8:
         raise TypeError(f"pixel plane must be uint8 or uint16, got {arr.dtype}")
-    return torch.from_numpy(arr).to(device).to(torch.int32)
+    return torch.from_numpy(arr).to(device)
+
+
+def plane_tensor(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """pixel_tensor widened to int32 on the device, for the plain
+    programs."""
+    return pixel_tensor(arr, device).to(torch.int32)
 
 
 @functools.lru_cache(maxsize=None)

@@ -47,9 +47,9 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-def _frames(w, h, n=4, seed=7):
+def _frames(w, h, n=4, seed=7, bd=8):
     rng = np.random.default_rng(seed)
-    return [make_frame(w, h, t, 8, 0.02, rng) for t in range(n)]
+    return [make_frame(w, h, t, bd, 0.02, rng) for t in range(n)]
 
 
 def _encode(enc, frames):
@@ -92,6 +92,45 @@ def test_port_encode_matches_jax(pallas_route, dims):
         assert np.array_equal(d.y, o.recon_y)
         assert np.array_equal(d.u, o.recon_u)
         assert np.array_equal(d.v, o.recon_v)
+
+
+def test_port_encode_matches_jax_10bit(pallas_route):
+    """The K1 route at 10 bit: the P-frame search sees uint16 source
+    planes and narrows the uint16 recon to them."""
+    w, h = 176, 144
+    frames = _frames(w, h, n=3, bd=10)
+    assert frames[0][0].dtype == np.uint16
+    want = _encode(ref_api.Encoder(ref_cfg(LD_CFG), w, h, bit_depth=10),
+                   frames)
+    got = _encode(Encoder(LD_CFG, w, h, bit_depth=10, device="cpu"), frames)
+    assert [o.payload for o in got] == [o.payload for o in want]
+    decoded = decode_obus(b"".join(o.payload for o in got))
+    assert len(decoded) == len(got)
+    for d, o in zip(decoded, got):
+        assert np.array_equal(d.y, o.recon_y)
+
+
+@pytest.mark.parametrize("bd", [8, 10])
+def test_k1_route_hands_planes_in_their_pixel_width(pallas_route,
+                                                    monkeypatch, bd):
+    """Both K1-route callers (the P-frame device block and hme_mv_sad)
+    give the wrapper uint8 planes at 8 bit and int16 planes above: no
+    int32 widening, and the uint16 recon narrowed to the source's type."""
+    seen = []
+    real = port_fi.hme_search_kernel
+    monkeypatch.setattr(
+        port_fi, "hme_search_kernel",
+        lambda s, r: seen.append((s.dtype, r.dtype)) or real(s, r))
+    frames = _frames(176, 144, n=2, bd=bd)
+    _encode(Encoder(LD_CFG, 176, 144, bit_depth=bd, device="cpu"), frames)
+    port_fi.hme_mv_sad(frames[0][0], frames[1][0], "cpu")
+    want = torch.uint8 if bd == 8 else torch.int16
+    assert seen == [(want, want)] * 2
+
+
+def test_default_route_keeps_int32_planes(default_route):
+    plane = np.zeros((16, 16), np.uint8)
+    assert port_fi._hme_plane(plane, torch.device("cpu")).dtype == torch.int32
 
 
 _NO_JAX_ENCODE = r"""

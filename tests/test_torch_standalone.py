@@ -53,8 +53,9 @@ PORTED = {
     "app/main.py": set(),                          # its docstring only
     "models/fast_intra.py": {
         "<imports>", "_jitted_decide", "_host_copy_async", "_jitted_hme",
-        "_jitted_gop_search", "_jitted_gop_search_tf", "_hme_packed",
-        "hme_mv_sad", "FastIntraEncoder.__init__",
+        "_jitted_gop_search", "_jitted_gop_search_tf", "_k1_route",
+        "_hme_plane", "_hme_packed", "hme_mv_sad",
+        "FastIntraEncoder.__init__",
         "FastIntraEncoder.make_sharded_decide",
         "FastIntraEncoder._decide_dispatch",
         "FastIntraEncoder._decide_finish", "FastIntraEncoder.prefetch_decide",
