@@ -18,7 +18,14 @@ Drives the port's paths once each through its public API, on "cuda", at
   - the command-line encoder (python -m svt_av1_psy_tpu_torch, run here in
     this process through app.cli.main): low delay at preset 10 on the K1
     route, where the key frame's temporal filter and the TPL lookahead
-    search through hme_mv_sad, and the default random access at preset 8.
+    search through hme_mv_sad, and the default random access at preset 8;
+  - the C API (native/capi.h) through the port's shim, libsvtav1_torch.so:
+    low delay at preset 10 on the K1 route from this process (ctypes) and
+    from a C program of its own;
+  - multi-device on the one card, as lists of devices with a stream each:
+    the sharded decide, random access with its mini-GoPs on device groups
+    (the width-sharded GoP program for a group of two), and the twin of
+    __graft_entry__.py's entry and dryrun_multichip.
 Before that it builds every CUDA kernel from the sources in this checkout
 and holds each against its plain PyTorch version at the shapes the path
 gives it. K1 is the only hand-written kernel; the other device programs
@@ -83,9 +90,27 @@ and prints no result):
      pixels that differ between the devices are counted); the own decoder
      decodes the stream;
  17. after the last timed phase, the CLI LD stream of phase 15 through
-     the repo's own decoder: all 8 frames above the PSNR floor.
+     dav1d where libdav1d.so.6 loads (all 8 frames), else through the
+     repo's own decoder (the first 3), above the PSNR floor;
+ 18. (after 5) the C API in-process: the port's shim built and loaded
+     through ctypes, 8 frames of phase 4's frames at the shim's config
+     (8-bit, LD, preset 10, CRF 30, device=cuda) through svt_tpu_enc_*:
+     payload bytes equal to an API run of that config, K1 once per P
+     frame, fps;
+ 19. (after 18) the C API standalone: a C program linked against the
+     shim encodes the first 3 frames on cuda in a process of its own
+     (Python, torch and CUDA start inside the library): its packets equal
+     18's first 3;
+ 20. (after 9) make_sharded_decide(["cuda"] * n) on a 1088x1920 plane, n
+     = 2 and 4: maps equal to the unsharded decide's, the shards'
+     dispatch under sync debug mode "error", both timed (CUDA events);
+ 21. 1080p RA preset 10 CRF 30, 3 levels, TF off, 17 frames, without
+     device groups, on two groups of ["cuda"] and on one group of
+     ["cuda", "cuda"]: equal payload bytes, every GoP on a group, fps;
+ 22. graft_entry.entry's step, and dryrun_multichip(n) on ["cuda"] * n
+     for n = 2, 4: both streams decode to their recon.
 At the end no module of jax or of the JAX package (svt_av1_psy_tpu) may
-have been loaded.
+have been loaded; the run's total time is printed.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 The line before the last is {"kernels": [...]}; the last line is
@@ -116,6 +141,8 @@ CMP_W, CMP_H, CMP_LEVELS, CMP_FRAMES = 352, 288, 3, 17
 NS_FRAMES = 64                   # the north star (bench.py bench_northstar)
 SC_W, SC_H = 176, 144            # the full-RD route's host walk is Python
 MIN_PSNR_DB = 30.0               # recon sanity floor at CRF 30
+GOP_LEVELS, GOP_FRAMES = 3, 17   # GoP groups: a key + two 8-frame mini-GoPs
+OWN_DECODE_FRAMES = 3            # phase 17 on the own decoder (~35 s/frame)
 
 
 def fail(msg: str) -> None:
@@ -861,7 +888,329 @@ def full_rd_phase(np, torch, Encoder, EncoderConfig, PredStructure,
           "_encode_key_sc on both devices")
 
 
+# --- the C API, sharded decide, GoP groups, the multi-device twin ----------
+
+# the shim's config for the C API phases: the LD cell of phase 4 as a C
+# caller states it (native/capi.h SvtTpuConfig)
+CAPI_CFG = dict(width=W, height=H, bit_depth=8, enc_mode=10, crf=30.0,
+                intra_period=-1, frame_rate=60, tile_columns=-1,
+                hierarchical_levels=0, pred_structure=1)
+CAPI_STANDALONE_FRAMES = 3
+
+_CAPI_DEMO = r"""
+#include <stdio.h>
+#include <stdlib.h>
+#include <string.h>
+#include "capi.h"
+/* demo frames.yuv packets.bin n: encodes n 1080p 8-bit 4:2:0 frames on
+   cuda, LD preset 10 CRF 30, and writes each packet as an int64 size and
+   its bytes */
+static int drain(SvtTpuEncoder *h, FILE *out) {
+    const uint8_t *data; size_t size; int64_t pts;
+    while (svt_tpu_enc_get_packet(h, &data, &size, &pts) == SVT_TPU_OK) {
+        int64_t n = (int64_t)size;
+        if (fwrite(&n, 8, 1, out) != 1 || fwrite(data, 1, size, out) != size)
+            return 1;
+    }
+    return 0;
+}
+int main(int argc, char **argv) {
+    if (argc != 4) return 9;
+    SvtTpuEncoder *h; SvtTpuConfig cfg;
+    if (svt_tpu_enc_init_handle(&h, &cfg)) return 1;
+    cfg.width = 1920; cfg.height = 1080; cfg.bit_depth = 8;
+    cfg.enc_mode = 10; cfg.crf = 30; cfg.intra_period = -1;
+    cfg.frame_rate = 60; cfg.tile_columns = -1;
+    cfg.hierarchical_levels = 0; cfg.pred_structure = 1;
+    if (svt_tpu_enc_set_parameter(h, &cfg)) return 2;
+    if (svt_tpu_enc_parse_parameter(h, "device=cuda")) return 3;
+    if (svt_tpu_enc_init(h)) return 4;
+    size_t ny = 1920 * 1080, nc = 960 * 540;
+    unsigned char *y = malloc(ny), *u = malloc(nc), *v = malloc(nc);
+    FILE *in = fopen(argv[1], "rb"), *out = fopen(argv[2], "wb");
+    if (!in || !out) return 5;
+    for (int i = 0; i < atoi(argv[3]); i++) {
+        if (fread(y, 1, ny, in) != ny || fread(u, 1, nc, in) != nc ||
+            fread(v, 1, nc, in) != nc) return 6;
+        if (svt_tpu_enc_send_picture(h, y, 1920, u, v, 960)) return 7;
+        if (drain(h, out)) return 8;
+    }
+    if (svt_tpu_enc_send_picture(h, NULL, 0, NULL, NULL, 0)) return 7;
+    if (drain(h, out)) return 8;
+    svt_tpu_enc_deinit(h);
+    fclose(out);
+    printf("ok\n");
+    return 0;
+}
+"""
+
+
+def capi_session(ctypes, lib, params):
+    """An initialized handle of the shim at CAPI_CFG with the staged
+    parameter strings; returns (handle, send(y, u, v) or send(None) to
+    flush -> [payload, ...])."""
+    class Cfg(ctypes.Structure):
+        _fields_ = [(k, ctypes.c_double if k == "crf" else ctypes.c_int32)
+                    for k in ("width", "height", "bit_depth", "enc_mode",
+                              "crf", "intra_period", "frame_rate",
+                              "tile_columns", "hierarchical_levels",
+                              "pred_structure")]
+    vp = ctypes.c_void_p
+    lib.svt_tpu_enc_init_handle.argtypes = [ctypes.POINTER(vp),
+                                            ctypes.POINTER(Cfg)]
+    lib.svt_tpu_enc_set_parameter.argtypes = [vp, ctypes.POINTER(Cfg)]
+    lib.svt_tpu_enc_parse_parameter.argtypes = [vp, ctypes.c_char_p]
+    lib.svt_tpu_enc_init.argtypes = [vp]
+    lib.svt_tpu_enc_send_picture.argtypes = [vp, vp, ctypes.c_int32, vp, vp,
+                                             ctypes.c_int32]
+    lib.svt_tpu_enc_get_packet.argtypes = [
+        vp, ctypes.POINTER(ctypes.POINTER(ctypes.c_uint8)),
+        ctypes.POINTER(ctypes.c_size_t), ctypes.POINTER(ctypes.c_int64)]
+    lib.svt_tpu_enc_deinit.argtypes = [vp]
+    h, cfg = vp(), Cfg()
+    if lib.svt_tpu_enc_init_handle(ctypes.byref(h), ctypes.byref(cfg)):
+        fail("svt_tpu_enc_init_handle failed")
+    for k, v in CAPI_CFG.items():
+        setattr(cfg, k, v)
+    if lib.svt_tpu_enc_set_parameter(h, ctypes.byref(cfg)):
+        fail("svt_tpu_enc_set_parameter refused the config")
+    for p in params:
+        if lib.svt_tpu_enc_parse_parameter(h, p.encode()):
+            fail(f"svt_tpu_enc_parse_parameter refused {p}")
+    if lib.svt_tpu_enc_init(h):
+        fail("svt_tpu_enc_init failed")
+    data = ctypes.POINTER(ctypes.c_uint8)()
+    size, pts = ctypes.c_size_t(), ctypes.c_int64()
+
+    def send(y, u=None, v=None):
+        if y is None:
+            rc = lib.svt_tpu_enc_send_picture(h, None, 0, None, None, 0)
+        else:
+            rc = lib.svt_tpu_enc_send_picture(h, y.ctypes.data, y.shape[1],
+                                              u.ctypes.data, v.ctypes.data,
+                                              u.shape[1])
+        if rc:
+            fail(f"svt_tpu_enc_send_picture returned {rc}")
+        out = []
+        while lib.svt_tpu_enc_get_packet(h, ctypes.byref(data),
+                                         ctypes.byref(size),
+                                         ctypes.byref(pts)) == 0:
+            out.append(ctypes.string_at(data, size.value))
+        return out
+    return h, send
+
+
+def capi_phase(np, torch, frames, hme_search_kernel, card):
+    """The port's shim built from native/capi_backend.c and loaded through
+    ctypes: 8 frames of the LD K1 cell through svt_tpu_enc_* on cuda. The
+    payload bytes must equal an API run of the shim's config
+    (capi_bridge.make_encoder: the shim's 8-bit config is not phase 4's,
+    whose Encoder keeps the default encoder_bit_depth); K1 must launch
+    once per P frame. Returns (K1 launches, payloads)."""
+    import ctypes
+
+    from svt_av1_psy_tpu_torch import capi_bridge, capi_build
+    t0 = time.perf_counter()
+    so = capi_build.build(force=True)
+    print(f"built {so.relative_to(ROOT)} in {time.perf_counter() - t0:.2f} s "
+          "(native/capi_backend.c, its module literals pointed at the "
+          "port's bridge)")
+    lib = ctypes.CDLL(str(so))
+    args = [CAPI_CFG[k] for k in ("width", "height", "bit_depth", "enc_mode",
+                                  "crf", "intra_period", "frame_rate",
+                                  "tile_columns", "hierarchical_levels",
+                                  "pred_structure")]
+    api = capi_bridge.make_encoder(*args, extra_params=["device=cuda"])
+    try:
+        want = [p.payload for f in frames for p in api.send_picture(*f)]
+        want += [p.payload for p in api.flush()]
+    finally:
+        api.close()
+    torch.cuda.synchronize()
+    planes = [[np.ascontiguousarray(p) for p in f] for f in frames]
+    hme_search_kernel.launches = 0
+    t0 = time.perf_counter()
+    h, send = capi_session(ctypes, lib, ["device=cuda"])
+    got = [p for f in planes for p in send(*f)] + send(None)
+    lib.svt_tpu_enc_deinit(h)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = hme_search_kernel.launches
+    n_p = len(frames) - 1
+    print(f"C API (in-process, ctypes): {len(frames)} frames in {secs:.3f} s:"
+          f" {len(frames) / secs:.3f} fps, {len(got)} packets, "
+          f"{sum(map(len, got))} bytes; K1 launches {launches} [{card}]")
+    if launches != n_p:
+        fail(f"C API: K1 launched {launches} times for {n_p} P frames")
+    if got != want:
+        fail(f"C API: payloads ({[len(p) for p in got]} B) differ from the "
+             f"API run of the same config ({[len(p) for p in want]} B)")
+    print("payload bytes equal to the API run of the same config")
+    return launches, got
+
+
+def capi_standalone_phase(np, frames, tmp, payloads, card) -> None:
+    """A C program linked against the port's shim, run as a process of
+    its own: Python starts inside the library (sys.executable is the C
+    program), imports torch, initializes CUDA and runs K1 on the first
+    frames; its packets must equal the in-process run's."""
+    from svt_av1_psy_tpu_torch import capi_build
+    n = CAPI_STANDALONE_FRAMES
+    demo = tmp / "capi_demo.c"
+    demo.write_text(_CAPI_DEMO)
+    exe = tmp / "capi_demo"
+    subprocess.run(["cc", "-O1", str(demo), "-o", str(exe),
+                    f"-I{ROOT / 'native'}", f"-L{capi_build.BUILD}",
+                    "-lsvtav1_torch", f"-Wl,-rpath,{capi_build.BUILD}"],
+                   check=True, timeout=120)
+    raw = tmp / "capi_frames.yuv"
+    with open(raw, "wb") as f:
+        for fr in frames[:n]:
+            for p in fr:
+                f.write(np.ascontiguousarray(p).tobytes())
+    out = tmp / "capi_packets.bin"
+    # the embedded interpreter starts from the C program, not from this
+    # interpreter's environment: hand it this sys.path; no SVT_TRACE (its
+    # frames would join this process's trace)
+    env = {k: v for k, v in os.environ.items() if k != "SVT_TRACE"}
+    env.update(SVT_HME_PALLAS="1", PYTHONPATH=os.pathsep.join(
+        [str(ROOT)] + [p for p in sys.path if p]))
+    t0 = time.perf_counter()
+    r = subprocess.run([str(exe), str(raw), str(out), str(n)], env=env,
+                       capture_output=True, text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    if r.returncode != 0:
+        fail(f"the C program exited {r.returncode}: {r.stdout[-2000:]}"
+             f"{r.stderr[-4000:]}")
+    buf, got = out.read_bytes(), []
+    while buf:
+        size = int.from_bytes(buf[:8], "little")
+        got.append(buf[8:8 + size])
+        buf = buf[8 + size:]
+    print(f"C program: {n} frames in {secs:.3f} s (process start, torch "
+          f"import, CUDA init and the encode), {len(got)} packets [{card}]")
+    if got != payloads[:n]:
+        fail(f"C program: packets {[len(p) for p in got]} B differ from the "
+             f"in-process run's first {n} ({[len(p) for p in payloads[:n]]})")
+    print(f"packets equal to the in-process run's first {n}")
+
+
+def streams_ms(torch, fn, streams, reps: int) -> float:
+    """Median ms by CUDA events of fn(), whose work runs on `streams` (and
+    the current stream): they start after the start event, and the end
+    event waits for all of them."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        cur = torch.cuda.current_stream()
+        start.record()
+        for s in streams:
+            s.wait_stream(cur)
+        fn()
+        for s in streams:
+            cur.wait_stream(s)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def sharded_decide_phase(np, torch, plane, card) -> None:
+    """make_sharded_decide(["cuda"] * n) on a 1088x1920 plane, n = 2, 4:
+    the maps equal the unsharded decide's; the shards' dispatch makes no
+    host sync (sync debug mode "error"); both timed."""
+    from svt_av1_psy_tpu_torch.models.fast_intra import FastIntraEncoder
+    from svt_av1_psy_tpu_torch.ops import torch_backend as tb
+    from svt_av1_psy_tpu_torch.ops.quant import ac_q
+    from svt_av1_psy_tpu_torch.utils.device import DeviceGroup
+    enc = FastIntraEncoder(W, H, qindex=120, device="cuda")
+    bias = int(8 * ac_q(enc.qindex, enc.bd))
+    want = enc._decide(plane)
+    one_ms = streams_ms(torch, lambda: enc._decide_dispatch(plane), [], 5)
+    print(f"unsharded decide (upload, program, host copy): {one_ms:.3f} ms "
+          f"[{card}]")
+    for n in (2, 4):
+        group = DeviceGroup(["cuda"] * n)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            stitch = tb.intra_decide_sharded(plane, bias, enc.bd,
+                                             enc.min_block, group)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        for got in (enc._decide_finish(stitch),
+                    enc.make_sharded_decide(["cuda"] * n)(plane)):
+            for a, b in zip(got, want):
+                for k in b:
+                    if not np.array_equal(a[k], b[k]):
+                        fail(f"sharded decide over {n}: the {k} map differs")
+        ms = streams_ms(torch, lambda: tb.intra_decide_sharded(
+            plane, bias, enc.bd, enc.min_block, group), group.streams, 5)
+        shards = [(s.x1 - s.x0) // 64 for s in tb.column_shards(PAD_W, n)]
+        print(f"{n} shards {shards} superblocks: maps equal to the unsharded"
+              f" decide's; dispatch made no host sync; {ms:.3f} ms [{card}]")
+    enc.close()
+
+
+def gop_groups_phase(np, torch, Encoder, EncoderConfig, make_frame,
+                     card) -> None:
+    """1080p RA preset 10 CRF 30, 3 levels, TF off, 17 frames (a key and
+    two 8-frame mini-GoPs): without groups, on two groups of ["cuda"] and
+    on one group of ["cuda", "cuda"] (the width-sharded GoP program). The
+    payload bytes must equal the ungrouped run's, every GoP on a group."""
+    rng = np.random.default_rng(13)
+    frames = [make_frame(W, H, t, 8, 0.02, rng) for t in range(GOP_FRAMES)]
+    cfg = EncoderConfig(enc_mode=10, qp=30, intra_period_length=-1,
+                        hierarchical_levels=GOP_LEVELS, enable_tf=0)
+    runs = {}
+    for name, groups in (("ungrouped", None),
+                         ("two groups of [cuda]", [["cuda"], ["cuda"]]),
+                         ("one group of [cuda, cuda]", [["cuda", "cuda"]])):
+        enc = Encoder(cfg, W, H, device="cuda")
+        if groups is not None:
+            enc._ra.gop_meshes = groups
+        t0 = time.perf_counter()
+        pkts = encode_ra(enc, frames)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        seq = getattr(enc._ra, "_gop_seq", 0)
+        runs[name] = [p.payload for p in pkts]
+        print(f"{name}: {GOP_FRAMES} frames in {secs:.3f} s: "
+              f"{GOP_FRAMES / secs:.3f} fps, {len(pkts)} TUs, "
+              f"{sum(map(len, runs[name]))} bytes, GoPs on groups {seq} "
+              f"[{card}]")
+        if groups is not None:
+            if seq < 2:
+                fail(f"{name}: {seq} GoPs went to the groups")
+            if runs[name] != runs["ungrouped"]:
+                fail(f"{name}: payload bytes differ from the ungrouped run")
+    print("payload bytes equal to the ungrouped run's")
+
+
+def multidevice_twin_phase(torch, card) -> None:
+    """graft_entry's entry() step, then dryrun_multichip(n) for n = 2, 4
+    on ["cuda"] * n: both of its streams decode to their recon."""
+    from svt_av1_psy_tpu_torch.graft_entry import dryrun_multichip, entry
+    step, args = entry("cuda")
+    maps = step(*args)
+    torch.cuda.synchronize()
+    print(f"entry(): intra_decide on {tuple(args[0].shape)} gives "
+          f"{[tuple(m.shape) for m in maps]}")
+    for n in (2, 4):
+        t0 = time.perf_counter()
+        res = dryrun_multichip(n)
+        torch.cuda.synchronize()
+        print(f"dryrun_multichip({n}) on ['cuda'] * {n}: intra "
+              f"{len(res['intra'])} bytes, RA {len(res['ra'])} TUs over "
+              f"{res['gop_seq']} grouped GoPs, decoded by {res['decoder']} "
+              f"equal to the recon, {time.perf_counter() - t0:.2f} s [{card}]")
+
+
 def main() -> None:
+    run_t0 = time.perf_counter()
     try:
         import torch
     except ImportError:
@@ -1007,12 +1356,21 @@ def main() -> None:
     torch.cuda.synchronize()
     k1_launches = launches
 
-    # the remaining paths run without a route switch: hme_search2
-    del os.environ["SVT_HME_PALLAS"]
-
     cli_dir = tempfile.TemporaryDirectory()
     tmp = pathlib.Path(cli_dir.name)
     problems = []
+    phase(f"C API in-process: {N_FRAMES} frames 1080p LD preset 10 CRF 30 "
+          "through the port's shim on cuda, K1 route")
+    capi_launches, capi_payloads = capi_phase(np, torch, frames,
+                                              hme_search_kernel, card)
+
+    phase(f"C API standalone: a C program encodes the first "
+          f"{CAPI_STANDALONE_FRAMES} frames on cuda")
+    capi_standalone_phase(np, frames, tmp, capi_payloads, card)
+
+    # the remaining paths run without a route switch: hme_search2
+    del os.environ["SVT_HME_PALLAS"]
+
     phase(f"CLI: {N_FRAMES} frames 1080p LD preset 10 CRF 30 on cuda, "
           "K1 route, key-frame TF and TPL lookahead")
     cli_launches, cli_ld_stream = cli_ld_phase(
@@ -1180,6 +1538,18 @@ def main() -> None:
           f"{tf_diff} of {n_px} pixels differ, largest difference {tf_max}")
     torch.cuda.synchronize()
 
+    phase("sharded decide: make_sharded_decide(['cuda'] * n) on a "
+          "1088x1920 plane, n = 2, 4")
+    sharded_decide_phase(np, torch, ys[0], card)
+
+    phase(f"GoP groups: {GOP_FRAMES} frames 1080p RA preset 10 CRF 30, "
+          f"{GOP_LEVELS} levels, TF off, on device groups")
+    gop_groups_phase(np, torch, Encoder, EncoderConfig, make_frame, card)
+
+    phase("the multi-device twin: graft_entry.entry and dryrun_multichip "
+          "(2, 4) on the one card")
+    multidevice_twin_phase(torch, card)
+
     from svt_av1_psy_tpu_torch.models.lr_search import DeviceLrSearch
 
     phase("block_mode_costs at 1088x1920: cuda vs cpu")
@@ -1210,14 +1580,26 @@ def main() -> None:
     cli_ra_phase(np, json, torch, make_frame, tmp, trace_path, card,
                  problems)
 
-    # after the last timed phase: the repo's own decoder is Python, about
-    # half a minute per 1080p frame on one core
-    phase("CLI: the LD stream through the repo's own decoder")
+    # after the last timed phase: dav1d where libdav1d.so.6 loads, else
+    # the repo's own decoder, which is Python (about half a minute per
+    # 1080p frame on one core) and reads the first frames only
+    from svt_av1_psy_tpu_torch.bitstream.ivf import read_ivf
+    from svt_av1_psy_tpu_torch.graft_entry import conformance_decoder
+    decoder, decode = conformance_decoder()
+    tus = [p for _, p in read_ivf(cli_ld_stream)[1]]
+    if decoder == "own":
+        tus = tus[:OWN_DECODE_FRAMES]
+    phase(f"CLI: the LD stream's first {len(tus)} frames through "
+          f"{decoder}")
     t0 = time.perf_counter()
-    psnrs = decode_check(np, cli_ld_stream, frames, "CLI LD")
-    print(f"{len(psnrs)} frames decoded in {time.perf_counter() - t0:.1f} "
-          f"s, luma PSNR {min(psnrs):.2f}..{max(psnrs):.2f} dB >= "
-          f"{MIN_PSNR_DB}")
+    dec = decode(tus)
+    if len(dec) != len(tus):
+        fail(f"CLI LD: the decoder gave {len(dec)} frames for {len(tus)}")
+    psnrs = [psnr_check(np, f[0], d.y, f"CLI LD frame {i}")
+             for i, (f, d) in enumerate(zip(frames, dec))]
+    print(f"decoder: {decoder}; {len(psnrs)} frames decoded in "
+          f"{time.perf_counter() - t0:.1f} s, luma PSNR "
+          f"{min(psnrs):.2f}..{max(psnrs):.2f} dB >= {MIN_PSNR_DB}")
     cli_dir.cleanup()
     # a disagreement of the CLI phases fails the run after all of them
     # have printed their numbers
@@ -1228,19 +1610,21 @@ def main() -> None:
                     if m.split(".")[0] in ("jax", "jaxlib", "svt_av1_psy_tpu"))
     if loaded:
         fail(f"modules of the JAX stack were loaded: {loaded}")
-    print(f"K1 launches per path: LD K1 route {k1_launches}, CLI LD "
-          f"{cli_launches}, north star {ns_launches}")
+    print(f"K1 launches per path: LD K1 route {k1_launches}, C API "
+          f"{capi_launches}, CLI LD {cli_launches}, north star {ns_launches}")
+    print(f"smoke run: {time.perf_counter() - run_t0:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "hme_sad_scan", "route": "cuda",
         "source": "svt_av1_psy_tpu_torch/csrc/hme_sad_scan.cu",
         "replaces": "svt_av1_psy_tpu/ops/jax_backend.py:689",
-        "launches": cli_launches, "max_abs_err": k1_err,
+        "launches": capi_launches, "max_abs_err": k1_err,
         "ms": k1_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None,
         "ms_10bit": k1_10_ms, "profiler_kernel_ms": kernel_ms,
         "profiler_kernel_cold_l2_ms": cold_ms,
         "profiler_kernel_ms_10bit": kernel_10_ms,
         "launches_per_path": {"ld_k1_route": k1_launches,
+                              "capi": capi_launches,
                               "cli_ld": cli_launches,
                               "north_star": ns_launches}}]}))
     print(json.dumps({"ok": True, "device": {

@@ -15,8 +15,11 @@ in PyTorch and writes the Pallas kernels again by hand for NVIDIA Hopper
     enc = Encoder(cfg, 1920, 1080, device="cuda")
 
 or, from the command line, ``python -m svt_av1_psy_tpu_torch -i in.y4m
--b out.ivf --device cuda``. Multi-device runs raise
-``NotImplementedError`` naming their ROADMAP item.
+-b out.ivf --device cuda``; from C, through the shim that
+``capi_build.py`` builds (``libsvtav1_torch.so``, the reference's
+``native/capi.h``). Multi-device runs take lists of devices in place of
+meshes (``FastIntraEncoder.make_sharded_decide``, ``RaDriver.gop_meshes``;
+``graft_entry.dryrun_multichip`` drives both).
 """
 
 __version__ = "0.1.0"

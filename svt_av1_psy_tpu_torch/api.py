@@ -29,8 +29,8 @@ the routing is the reference's:
     enc = Encoder(cfg, 1920, 1080, device="cuda")
 
 Random access (the default pred_structure, with hierarchical_levels set)
-goes through send_picture / flush; multi-device runs (make_sharded_decide,
-gop_meshes) raise NotImplementedError naming their ROADMAP item.
+goes through send_picture / flush. Multi-device runs take lists of
+devices in place of meshes (make_sharded_decide, gop_meshes).
 Everything but Encoder.__init__ is the reference's code;
 tests/test_torch_standalone.py guards it against drift.
 """

@@ -24,7 +24,8 @@ build the port's IntraEncoder and DeviceLrSearch on that device
 asynchronously in stream order; each packed result comes home through a
 HostCopy (a non_blocking copy into pinned memory plus a CUDA event), which
 the host waits for only where it reads the result. The multi-device
-decide (make_sharded_decide) raises. Everything else is the reference's
+decide (make_sharded_decide) takes a list of devices in place of a mesh
+and shards the plane's columns over it. Everything else is the reference's
 code; tests/test_torch_standalone.py lists what differs and guards the
 rest against drift.
 """
@@ -45,11 +46,13 @@ from svt_av1_psy_tpu_torch.ops.quant import ac_q
 from svt_av1_psy_tpu_torch.ops.torch_backend import (hme2_unpack,
                                                      hme_search2,
                                                      intra_decide_packed,
+                                                     intra_decide_sharded,
                                                      intra_decide_unpack,
                                                      pack_mv_sad,
                                                      pixel_tensor,
                                                      plane_tensor)
-from svt_av1_psy_tpu_torch.utils.device import HostCopy, resolve_device
+from svt_av1_psy_tpu_torch.utils.device import (DeviceGroup, HostCopy,
+                                               resolve_device)
 
 SB = 64
 
@@ -296,9 +299,23 @@ class FastIntraEncoder:
         return (mult + 0.0035 * qindex) / base
 
     # --- sharded device search (multi-chip; SURVEY.md §2.2 P4) -----------
-    def make_sharded_decide(self, mesh, axis: str = "sp"):
-        raise NotImplementedError(
-            "sharded decide (make_sharded_decide): ROADMAP queue 1 item 10")
+    def make_sharded_decide(self, devices):
+        """Shard the decision stage over column shards of a device list,
+        the port's form of the reference's mesh: one shard of whole
+        superblocks per entry (a list of torch.devices or names, which may
+        repeat one device; each entry runs on a CUDA stream of its own).
+        Each shard is copied with the halo columns its edge reads need
+        (ops/torch_backend.intra_decide_sharded). Returns a function with
+        the same output contract as _decide."""
+        group = DeviceGroup(devices)
+
+        def decide(yp: np.ndarray):
+            bias = int(8 * ac_q(self.qindex, self.bd))
+            return self._decide_finish(intra_decide_sharded(
+                np.asarray(yp), bias, self.bd, self.min_block, group))
+
+        self._decide = decide
+        return decide
 
     # --- device search stage ---------------------------------------------
     def _decide_dispatch(self, yp: np.ndarray) -> HostCopy:
@@ -331,6 +348,8 @@ class FastIntraEncoder:
         call will receive, so it computes on the device while the current
         frame's commit walk runs on the host. The driver must pass the
         SAME array object to the next encode_frame."""
+        if "_decide" in self.__dict__:        # sharded override active
+            return
         if self.device.type == "cpu" and \
                 not os.environ.get("SVT_PREFETCH_CPU"):
             # on the CPU the decide program and the commit-walk threads

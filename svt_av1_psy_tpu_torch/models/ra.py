@@ -24,27 +24,30 @@ in PyTorch on ``enc.device``. _dispatch_gop sends the planes to that
 device, runs the port's gop_search / gop_search_tf and queues the copy of
 their packed result into pinned memory (a HostCopy) in place of a fetch
 thread; _walk_gop takes the unpackers from the port; _tf_device_dispatch
-runs the key frame's temporal filter there. The multi-device GoP
-meshes (gop_meshes) raise, and _sharded_gop_search, their jax program,
-is not carried over. Nothing is warmed up ahead of the first GoP (the
-reference's _warmup_async compiles its jax programs; the port's are
-eager PyTorch). Everything else is the reference's code;
-tests/test_torch_standalone.py lists what differs and guards the rest
-against drift.
+runs the key frame's temporal filter there. The multi-device GoP meshes
+(gop_meshes) are device groups, each a list of devices with a stream per
+entry; _sharded_gop_search runs a GoP's program on its group,
+width-sharded when the group has several entries. Nothing is warmed up
+ahead of the first GoP (the reference's _warmup_async compiles its jax
+programs; the port's are eager PyTorch). Everything else is the
+reference's code; tests/test_torch_standalone.py lists what differs and
+guards the rest against drift.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from svt_av1_psy_tpu_torch.ops.torch_backend import (gop_search,
+                                                     gop_search_sharded,
                                                      gop_search_tf,
                                                      plane_tensor,
                                                      tf_filter_device)
-from svt_av1_psy_tpu_torch.utils.device import HostCopy
+from svt_av1_psy_tpu_torch.utils.device import DeviceGroup, HostCopy
 
 
 @dataclass
@@ -87,6 +90,23 @@ class _LazyRecon:
 
     def __len__(self):
         return 3
+
+
+_SHARDED_GOP_CACHE = {}
+
+
+def _sharded_gop_search(group):
+    """The GoP program of one entry of gop_meshes, a device group (a list
+    of devices, cached per group): a function of (planes (F, H, W) numpy,
+    edges, bias, bd, min_block) that queues gop_search on the group's
+    streams, width-sharded when the group has several entries
+    (ops/torch_backend.gop_search_sharded), and returns the host copy of
+    its packed result."""
+    key = (id(group), tuple(str(d) for d in group))
+    hit = _SHARDED_GOP_CACHE.get(key)
+    if hit is None:
+        hit = _SHARDED_GOP_CACHE[key] = DeviceGroup(group)
+    return functools.partial(gop_search_sharded, group=hit)
 
 
 class RaDriver:
@@ -436,7 +456,8 @@ class RaDriver:
                     tf_on = False
         with _tstage("gop_dispatch"):
             dev = enc.device
-            planes_dev = plane_tensor(planes, dev)
+            groups = None if tf_on else getattr(self, "gop_meshes", None)
+            planes_dev = None if groups else plane_tensor(planes, dev)
             if tf_on:
                 # TF window: sources at arf_d-4..arf_d-1, center (ARF)
                 # last — gathered from the frame stack by index; masked
@@ -502,23 +523,27 @@ class RaDriver:
                                           *chf).astype(dtype)
                     w2_v[T - 1] = _pad_to(np.asarray(frames[mid_d][2]),
                                           *chf).astype(dtype)
-                out = gop_search_tf(
+                out = HostCopy(gop_search_tf(
                     planes_dev, edges, int(bias),
                     plane_tensor(win_u, dev), plane_tensor(win_v, dev),
                     win_idx, torch.from_numpy(win_mask),
                     float(self.tf_strength), enc.bd, enc.min_block,
                     plane_tensor(w2_u, dev), plane_tensor(w2_v, dev),
-                    w2_idx, torch.from_numpy(w2_mask))
+                    w2_idx, torch.from_numpy(w2_mask)))
                 tf_n = 2
                 tf_mid = mid_d if tf_mid else None
-            elif getattr(self, "gop_meshes", None):
-                raise NotImplementedError(
-                    "GoP-parallel device meshes (gop_meshes): ROADMAP "
-                    "queue 1 item 10")
+            elif groups:
+                # GoP parallelism over device groups (the reference's
+                # disjoint meshes): successive mini-GoPs go round robin
+                # over the groups, each queued on its group's streams, so
+                # GoP k+1's program computes while GoP k is walked
+                group = groups[getattr(self, "_gop_seq", 0) % len(groups)]
+                self._gop_seq = getattr(self, "_gop_seq", 0) + 1
+                out = _sharded_gop_search(group)(planes, edges, int(bias),
+                                                 enc.bd, enc.min_block)
             else:
-                out = gop_search(planes_dev, edges, int(bias), enc.bd,
-                                 enc.min_block)
-            out = HostCopy(out)
+                out = HostCopy(gop_search(planes_dev, edges, int(bias),
+                                          enc.bd, enc.min_block))
         # dispatch-time base for the NEXT GoP's edges: this GoP's ARF
         # source (open-loop; its recon does not exist yet)
         self._disp_base_display = arf_d

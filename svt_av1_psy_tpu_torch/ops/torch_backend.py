@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import functools
 import os
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -28,6 +29,7 @@ import torch
 from svt_av1_psy_tpu_torch.constants import PredMode
 from svt_av1_psy_tpu_torch.ops.intra import (_SM_WEIGHTS, _dr_maps_z1,
                                              _dr_maps_z2, _dr_maps_z3)
+from svt_av1_psy_tpu_torch.utils.device import HostCopy, HostStitch, upload
 
 N_CANDS = 3
 
@@ -195,24 +197,35 @@ def predict_directional_batch(above2: torch.Tensor, left2: torch.Tensor,
 
 
 def _gather_sb_edges(plane: torch.Tensor, sb: int, bd: int,
-                     ext: bool = False):
+                     ext: bool = False, own: "Shard | None" = None):
     """jax_backend._gather_sb_edges: edges of every sb x sb block of a
     plane from the SOURCE frame. plane (H, W) int32. Returns (above (N,sb),
     left (N,sb), above_left (N,), have_a, have_l), plus (above2 (N,2sb),
-    left2 (N,2sb)) extended edges clamped at the frame when ext=True."""
-    H, W = plane.shape
-    nr, nc = H // sb, W // sb
+    left2 (N,2sb)) extended edges clamped at the frame when ext=True.
+
+    With own (a column Shard), plane holds the frame's columns [own.lo,
+    own.hi) and the blocks are those of its own columns [own.x0, own.x1):
+    the column left of the first block and the extended above edges come
+    from the halo, a block has a left edge when its FRAME column is > 0,
+    and the extended edges are clamped at the frame's last column."""
+    H, Wp = plane.shape
+    if own is None:
+        a, b, x0, W = 0, Wp, 0, Wp
+    else:
+        a, b, x0, W = own.x0 - own.lo, own.x1 - own.lo, own.x0, own.width
+    nr, nc = H // sb, (b - a) // sb
     base = 1 << (bd - 1)
     dev = plane.device
-    padded = plane.new_full((H + 1, W + 1), base)
+    padded = plane.new_full((H + 1, Wp + 1), base)
     padded[1:, 1:] = plane
-    rows = padded[::sb, :][:nr, 1:]                     # (nr, W)
-    above = rows.reshape(nr, nc, sb)
-    cols = padded[:, ::sb][1:, :nc]                     # (H, nc)
+    rows = padded[::sb, 1:][:nr]                        # (nr, Wp)
+    above = rows[:, a:b].reshape(nr, nc, sb)
+    cols = padded[1:, a::sb][:, :nc]                    # (H, nc)
     left = cols.reshape(nr, sb, nc).permute(0, 2, 1)    # (nr, nc, sb)
-    al = padded[::sb, ::sb][:nr, :nc]                   # (nr, nc)
+    al = padded[::sb, a::sb][:nr, :nc]                  # (nr, nc)
     have_a = (torch.arange(nr, device=dev) > 0).reshape(nr, 1).expand(nr, nc)
-    have_l = (torch.arange(nc, device=dev) > 0).reshape(1, nc).expand(nr, nc)
+    have_l = (torch.arange(nc, device=dev) * sb + x0 > 0).reshape(
+        1, nc).expand(nr, nc)
     ha3 = have_a.reshape(nr, nc, 1)
     hl3 = have_l.reshape(nr, nc, 1)
     n = nr * nc
@@ -226,8 +239,8 @@ def _gather_sb_edges(plane: torch.Tensor, sb: int, bd: int,
     if not ext:
         return out
     cs = torch.arange(2 * sb, device=dev)
-    xs = torch.clamp_max(torch.arange(nc, device=dev).reshape(nc, 1) * sb
-                         + cs, W - 1)
+    xs = a + torch.clamp_max(torch.arange(nc, device=dev).reshape(nc, 1) * sb
+                             + cs, W - 1 - x0)
     above2 = rows[:, xs]                                # (nr, nc, 2sb)
     ys = torch.clamp_max(torch.arange(nr, device=dev).reshape(nr, 1) * sb
                          + cs, H - 1)
@@ -240,26 +253,30 @@ def _gather_sb_edges(plane: torch.Tensor, sb: int, bd: int,
 
 
 def intra_decide(plane: torch.Tensor, split_bias: int, bd: int = 8,
-                 min_block: int = 8):
+                 min_block: int = 8, own: "Shard | None" = None):
     """jax_backend.intra_decide: mode search at every block size plus the
     bottom-up split tree. plane (H, W) integer pixels (H, W multiples of
     64); split_bias: rate bias per split. Returns (split64, split32,
     split16, mode64, mode32, mode16, mode8): split maps uint8 (nr, nc),
     mode maps uint8 (nr, nc, N_CANDS), the stable top-K of the 13 modes.
+    With own (a column Shard of the frame that plane's columns [own.lo,
+    own.hi) come from), the maps are those of the shard's own blocks.
 
     Materialises (blocks, 13, s, s) int32 predictions per size, as the
     JAX program does (about 109 MB per size at 1088x1920)."""
     p = plane.to(torch.int32)
-    H, W = p.shape
+    own_p = p if own is None else p[:, own.x0 - own.lo:own.x1 - own.lo]
+    H, W = own_p.shape
     sizes = [s for s in (64, 32, 16, 8) if s >= min_block]
     costs = {}
     modes = {}
     for s in sizes:
-        a, l, c0, da, dl, a2, l2 = _gather_sb_edges(p, s, bd, ext=True)
+        a, l, c0, da, dl, a2, l2 = _gather_sb_edges(p, s, bd, ext=True,
+                                                    own=own)
         preds = torch.cat([predict_modes_batch(a, l, c0, da, dl, s, s, bd),
                            predict_directional_batch(a2, l2, c0, s, bd)],
                           dim=1)
-        blocks = p.reshape(H // s, s, W // s, s).permute(0, 2, 1, 3)
+        blocks = own_p.reshape(H // s, s, W // s, s).permute(0, 2, 1, 3)
         n = blocks.shape[0] * blocks.shape[1]
         sad = (blocks.reshape(n, 1, s, s) - preds).abs().sum(
             dim=(2, 3), dtype=torch.int32)
@@ -289,10 +306,11 @@ def intra_decide(plane: torch.Tensor, split_bias: int, bd: int = 8,
 
 
 def intra_decide_packed(plane: torch.Tensor, split_bias: int, bd: int = 8,
-                        min_block: int = 8) -> torch.Tensor:
+                        min_block: int = 8,
+                        own: "Shard | None" = None) -> torch.Tensor:
     """intra_decide with all seven outputs packed into ONE uint8 vector,
     so the result comes to the host in one copy."""
-    outs = intra_decide(plane, split_bias, bd, min_block)
+    outs = intra_decide(plane, split_bias, bd, min_block, own)
     return torch.cat([o.reshape(-1).to(torch.uint8) for o in outs])
 
 
@@ -439,18 +457,39 @@ def hme_search2(src: torch.Tensor, ref: torch.Tensor, r0: int = 16,
     single = src.dim() == 2
     if single:
         src, ref = src[None], ref[None]
-    i32 = torch.int32
-    sh = _half_res(src.to(i32))
-    rh = _half_res(ref.to(i32))
-    sq, rq = _half_res(sh), _half_res(rh)
-    B, Hh, Wh = sh.shape
-    Hq, Wq = sq.shape[1:]
-    n16r, n16c = Hh // 8, Wh // 8
-    nb = n16r * n16c
-    dev = sh.device
+    pyr = _hme_pyramid(src, ref)
+    seed = _hme_level0(pyr, r0)
+    k_glob = int(os.environ.get("SVT_HME_GLOBK", "4"))
+    glob_mv = _hme_global(_hme_votes(seed, r0), k_glob, r0) if k_glob \
+        else None
+    mv16, best_sad = _hme_level1(pyr, seed, glob_mv, r0, r1)
+    if single:
+        return mv16[0], best_sad[0]
+    return mv16, best_sad
 
-    # level 0: one quarter-res 4x4 block per 16x16 block; each dy step
-    # scores every dx at once through an unfolded view of the padded plane
+
+# hme_search2 in its parts, so that a width-sharded search
+# (gop_search_sharded) can vote over the whole frame between level 0 and
+# level 1
+
+def _hme_pyramid(src: torch.Tensor, ref: torch.Tensor):
+    """(sh, rh, sq, rq): the half- and quarter-res planes of a (B, H, W)
+    batch."""
+    sh = _half_res(src.to(torch.int32))
+    rh = _half_res(ref.to(torch.int32))
+    return sh, rh, _half_res(sh), _half_res(rh)
+
+
+def _hme_level0(pyr, r0: int) -> torch.Tensor:
+    """Level 0: one quarter-res 4x4 block per 16x16 block, full search over
+    +-r0. Returns the seeds (B, n16r, n16c, 2) int32, quarter-res units."""
+    _, _, sq, rq = pyr
+    i32 = torch.int32
+    B, Hq, Wq = sq.shape
+    n16r, n16c = Hq // 4, Wq // 4
+    dev = sq.device
+    # each dy step scores every dx at once through an unfolded view of the
+    # padded plane
     side0 = 2 * r0 + 1
     xshift0 = _edge_pad(rq, r0).unfold(2, Wq, 1)    # (B, Hq+2r0, side0, Wq)
     best_sad = torch.full((B, n16r, n16c), 1 << 30, dtype=i32, device=dev)
@@ -465,19 +504,42 @@ def hme_search2(src: torch.Tensor, ref: torch.Tensor, r0: int = 16,
                             k.to(i32) - r0], dim=-1)
         best_mv = torch.where(better[..., None], cand, best_mv)
         best_sad = torch.where(better, s_min, best_sad)
-    seed = best_mv.reshape(B, nb, 2)
+    return best_mv
 
-    # global candidates: the K_GLOB most-voted level-0 MVs of each frame
-    k_glob = int(os.environ.get("SVT_HME_GLOBK", "4"))
-    if k_glob:
-        vote = ((seed[..., 0] + r0) * side0 + seed[..., 1] + r0).long()
-        votes = torch.zeros((B, side0 * side0), dtype=i32, device=dev)
-        votes.scatter_add_(1, vote, torch.ones_like(vote, dtype=i32))
-        # lax.top_k order: more votes first, the lower bin first on ties
-        top = torch.sort(votes, dim=1, descending=True,
-                         stable=True).indices[:, :k_glob]
-        glob_mv = torch.stack([top // side0 - r0, top % side0 - r0],
-                              dim=-1).to(i32)       # (B, K_GLOB, 2)
+
+def _hme_votes(seed: torch.Tensor, r0: int) -> torch.Tensor:
+    """The histogram of level-0 seeds (B, ..., 2) over the (2r0+1)^2 bins
+    of each batch entry: (B, (2r0+1)^2) int32."""
+    side0 = 2 * r0 + 1
+    seed = seed.reshape(seed.shape[0], -1, 2)
+    vote = ((seed[..., 0] + r0) * side0 + seed[..., 1] + r0).long()
+    votes = torch.zeros((seed.shape[0], side0 * side0), dtype=torch.int32,
+                        device=seed.device)
+    votes.scatter_add_(1, vote, torch.ones_like(vote, dtype=torch.int32))
+    return votes
+
+
+def _hme_global(votes: torch.Tensor, k_glob: int, r0: int) -> torch.Tensor:
+    """The k_glob most-voted seeds of each batch entry (B, k_glob, 2)."""
+    side0 = 2 * r0 + 1
+    # lax.top_k order: more votes first, the lower bin first on ties
+    top = torch.sort(votes, dim=1, descending=True,
+                     stable=True).indices[:, :k_glob]
+    return torch.stack([top // side0 - r0, top % side0 - r0],
+                       dim=-1).to(torch.int32)
+
+
+def _hme_level1(pyr, seed: torch.Tensor, glob_mv, r0: int, r1: int):
+    """Level 1 and the global refine of hme_search2 from the seeds (B,
+    n16r, n16c, 2) and the global MVs (B, K, 2), or None for none. Returns
+    (mv16 (B, n16r, n16c, 2) int16, sad16 (B, n16r, n16c) int32)."""
+    sh, rh, _, _ = pyr
+    i32 = torch.int32
+    B, Hh, Wh = sh.shape
+    n16r, n16c = Hh // 8, Wh // 8
+    nb = n16r * n16c
+    dev = sh.device
+    seed = seed.reshape(B, nb, 2)
 
     # level 1: half-res 8x8 blocks, +-r1 around 2 * seed. The window start
     # by*8 + 2*seed - r1 + P lies in [by*8 + 8, by*8 + 72] of the plane
@@ -510,10 +572,10 @@ def hme_search2(src: torch.Tensor, ref: torch.Tensor, r0: int = 16,
     # global refine: +-R1G half-res around 2 * each global MV, dense over
     # the plane; a block takes it only on a strictly lower SAD. Window
     # rows start at 2*g - R1G + P in [13, 81], ending at most at Hh + 85.
-    if k_glob:
+    if glob_mv is not None:
         R1G = 2
         sideg = 2 * R1G + 1
-        for k in range(k_glob):
+        for k in range(glob_mv.shape[1]):
             gy, gx = glob_mv[:, k, 0], glob_mv[:, k, 1]          # (B,)
             ox0 = 2 * gx - R1G
             win = _windows(rp1, (2 * gy - R1G + P)[:, None],
@@ -531,10 +593,7 @@ def hme_search2(src: torch.Tensor, ref: torch.Tensor, r0: int = 16,
                                   dim=-1)
                 mv_h = torch.where(better[..., None], mv2, mv_h)
                 best_sad = torch.where(better, s_min, best_sad)
-    mv16 = (2 * mv_h).to(torch.int16)
-    if single:
-        return mv16[0], best_sad[0]
-    return mv16, best_sad
+    return (2 * mv_h).to(torch.int16), best_sad
 
 
 def _gather_sad_nodes(sh: torch.Tensor, rh: torch.Tensor, off: torch.Tensor,
@@ -692,6 +751,12 @@ def gop_search(frames: torch.Tensor, edges, split_bias: int, bd: int = 8,
         src, ref = frames[chunk[:, 0]], frames[chunk[:, 1]]
         mv, sad = hme_search2(src, ref)
         outs.append((mv, sad) + hme_sad_tree(src, ref, mv))
+    return _gop_pack(outs, dec)
+
+
+def _gop_pack(outs: list, dec: torch.Tensor) -> torch.Tensor:
+    """gop_search's packed buffer from the (mv, sad, sad32, sad64) of each
+    chunk of edges and the stacked decide buffers."""
     ints = torch.cat([torch.cat(part).to(torch.int32).reshape(-1)
                       for part in zip(*outs)])
     return torch.cat([ints.view(torch.uint8), dec.reshape(-1)])
@@ -784,3 +849,174 @@ def gop_search_tf_unpack(buf: np.ndarray, n_frames: int, n_edges: int,
         fv = pl[o + H * W + hc * wc:o + npl].reshape(hc, wc)
         out.append((fy, fu, fv))
     return mv, sad, sad32, sad64, dec, out
+
+
+# --- column shards over a device group ----------------------------------
+#
+# The reference shards its decide and its GoP program over the columns of
+# a device mesh and lets XLA's partitioner insert the halo exchanges. The
+# port splits the frame into column shards on the superblock grid, one
+# per entry of a DeviceGroup, and copies each shard with the halo columns
+# its reads reach: the decide reads one column left of a block and an
+# extended above edge 2 * 64 columns wide; hme_search2 reaches 47 half-res
+# columns at level 1, 34 in the global refine and 16 quarter-res at level
+# 0, and hme_sad_tree 48 half-res (96 full-res columns). A halo of 128
+# covers all of them and keeps every shard on the 64-column grid that the
+# SAD tree's nodes lie on. At the frame's edges a shard stops at the edge,
+# so the edge pads clamp at the frame's decimated edge, as unsharded.
+
+SHARD_HALO = 128
+
+
+class Shard(NamedTuple):
+    """A column shard of a frame `width` wide: its own columns [x0, x1)
+    and the columns [lo, hi) it is copied with (its own and the halo, cut
+    at the frame's edges)."""
+    x0: int
+    x1: int
+    lo: int
+    hi: int
+    width: int
+
+
+def column_shards(width: int, n: int) -> list:
+    """The frame's columns in at most n shards of whole superblocks, as
+    even as they go (30 superblocks over 4: 8, 8, 7, 7); no shard is
+    empty."""
+    n_sb = width // 64
+    q, r = divmod(n_sb, n)
+    out, x0 = [], 0
+    for i in range(min(n, n_sb)):
+        x1 = x0 + 64 * (q + (i < r))
+        out.append(Shard(x0, x1, max(x0 - SHARD_HALO, 0),
+                         min(x1 + SHARD_HALO, width), width))
+        x0 = x1
+    return out
+
+
+def _shard_planes(planes: np.ndarray, shards: list, group) -> list:
+    """Each shard's columns [lo, hi) of uint8/uint16 planes (..., H, W) as
+    int32 on its entry's device, made on its entry's stream. The planes
+    go to each device once, on the stream of the first entry there."""
+    if planes.dtype == np.uint16:
+        planes = planes.view(np.int16)
+    up, out = {}, []
+    for i, s in enumerate(shards):
+        dev = group.devices[i]
+        if dev not in up:
+            with group.stream(i):
+                up[dev] = (i, upload(planes, dev))
+        j, t = up[dev]
+        t = group.hand(t, j, i)
+        with group.stream(i):
+            out.append(t[..., s.lo:s.hi].to(torch.int32))
+    return out
+
+
+def intra_decide_stitch(bufs: list, height: int, widths: list) -> np.ndarray:
+    """The intra_decide_packed buffer of a whole frame from those of its
+    column shards (own widths `widths`, left to right)."""
+    if len(bufs) == 1:
+        return bufs[0]
+    parts = [intra_decide_unpack(b, (height, w)) for b, w in zip(bufs, widths)]
+    return np.concatenate([np.concatenate(m, axis=1).reshape(-1)
+                           for m in zip(*parts)])
+
+
+def intra_decide_sharded(plane: np.ndarray, split_bias: int, bd: int,
+                         min_block: int, group) -> HostStitch:
+    """intra_decide_packed of a padded uint8/uint16 plane (H, W) in column
+    shards over a DeviceGroup, each on its entry's stream; the shards'
+    buffers are stitched on the host when read (np.asarray gives
+    intra_decide_packed's buffer)."""
+    H, W = plane.shape
+    shards = column_shards(W, len(group))
+    copies = []
+    for i, (s, p) in enumerate(zip(shards, _shard_planes(plane, shards,
+                                                         group))):
+        with group.stream(i):
+            copies.append(HostCopy(intra_decide_packed(p, split_bias, bd,
+                                                       min_block, own=s)))
+    return HostStitch(copies, functools.partial(
+        intra_decide_stitch, height=H, widths=[s.x1 - s.x0 for s in shards]))
+
+
+def gop_search_stitch(bufs: list, n_frames: int, n_edges: int, height: int,
+                      widths: list) -> np.ndarray:
+    """gop_search's packed buffer of whole frames from those of its column
+    shards (own widths `widths`, left to right)."""
+    if len(bufs) == 1:
+        return bufs[0]
+    parts = [gop_search_unpack(b, n_frames, n_edges, (height, w))
+             for b, w in zip(bufs, widths)]
+    mv, sad, sad32, sad64 = (np.concatenate(p, axis=2)
+                             for p in list(zip(*parts))[:4])
+    dec = [intra_decide_stitch([p[4][f] for p in parts], height, widths)
+           for f in range(n_frames)]
+    ints = np.concatenate([mv.astype(np.int32).reshape(-1), sad.reshape(-1),
+                           sad32.reshape(-1), sad64.reshape(-1)])
+    return np.concatenate([ints.view(np.uint8)] + dec)
+
+
+def gop_search_sharded(planes: np.ndarray, edges, split_bias: int, bd: int,
+                       min_block: int, group):
+    """gop_search of uint8/uint16 planes (F, H, W) on a DeviceGroup, queued
+    on its entries' streams; returns the host copy of gop_search's packed
+    buffer (a HostCopy, or a HostStitch of the shards' buffers).
+
+    One entry runs gop_search. Several split the frames into column
+    shards: each runs the decide and, EDGE_CHUNK edges at a time,
+    hme_search2's level 0 on its columns with their halo; the shards'
+    histograms of their own blocks' seeds are summed on the first entry,
+    which takes the frame's global MVs (the stable top SVT_HME_GLOBK) and
+    hands them to every shard for level 1, the global refine and
+    hme_sad_tree. Each shard keeps the outputs of its own blocks."""
+    F, H, W = planes.shape
+    shards = column_shards(W, len(group))
+    frames = _shard_planes(planes, shards, group)
+    if len(shards) == 1:
+        with group.stream(0):
+            return HostCopy(gop_search(frames[0], edges, split_bias, bd,
+                                       min_block))
+    r0, r1 = 16, 7
+    k_glob = int(os.environ.get("SVT_HME_GLOBK", "4"))
+    edges = np.asarray(edges, np.int64)
+    idx, dec = [], []
+    for i, (s, f) in enumerate(zip(shards, frames)):
+        with group.stream(i):
+            idx.append(upload(edges, group.devices[i]))
+            dec.append(torch.stack([intra_decide_packed(
+                fr, int(split_bias), bd, min_block, own=s) for fr in f]))
+    outs = [[] for _ in shards]
+    for c0 in range(0, len(edges), EDGE_CHUNK):
+        pairs, pyr, seeds, votes = [], [], [], []
+        for i, (s, f) in enumerate(zip(shards, frames)):
+            with group.stream(i):
+                e = idx[i][c0:c0 + EDGE_CHUNK]
+                pairs.append((f[e[:, 0]], f[e[:, 1]]))
+                pyr.append(_hme_pyramid(*pairs[-1]))
+                seeds.append(_hme_level0(pyr[-1], r0))
+                own = seeds[-1][:, :, (s.x0 - s.lo) // 16:(s.x1 - s.lo) // 16]
+                votes.append(_hme_votes(own, r0))
+        glob_mv = None
+        if k_glob:
+            with group.stream(0):
+                total = sum(group.hand(v, i, 0) for i, v in enumerate(votes))
+                glob_mv = _hme_global(total, k_glob, r0)
+        for i, s in enumerate(shards):
+            with group.stream(i):
+                g = None if glob_mv is None else group.hand(glob_mv, 0, i)
+                mv, sad = _hme_level1(pyr[i], seeds[i], g, r0, r1)
+                sad32, sad64 = hme_sad_tree(*pairs[i], mv)
+                a, b = s.x0 - s.lo, s.x1 - s.lo
+                outs[i].append((mv[:, :, a // 16:b // 16],
+                                sad[:, :, a // 16:b // 16],
+                                sad32[:, :, a // 32:b // 32],
+                                sad64[:, :, a // 64:b // 64]))
+    copies = []
+    for i in range(len(shards)):
+        with group.stream(i):
+            copies.append(HostCopy(_gop_pack(outs[i], dec[i])))
+    return HostStitch(copies, functools.partial(
+        gop_search_stitch, n_frames=F, n_edges=len(edges), height=H,
+        widths=[s.x1 - s.x0 for s in shards]))

@@ -5,8 +5,7 @@ the JAX package's payload bytes frame for frame on the SVT_HME_PALLAS=1
 route and on the default (hme_search2) route, decode dav1d-exactly to its
 own recon, never import jax or the JAX package (a subprocess with both
 blocked runs every route and the CLI), refuse a GPU it does not have, and route
-every single-device config as the reference does (only the multi-device
-decide raises NotImplementedError).
+every single-device config as the reference does.
 """
 
 import inspect
@@ -133,7 +132,9 @@ def test_default_route_keeps_int32_planes(default_route):
     assert port_fi._hme_plane(plane, torch.device("cpu")).dtype == torch.int32
 
 
-_NO_JAX_ENCODE = r"""
+# an import blocker for a fresh interpreter: an import of jax, jaxlib or
+# any module of the JAX package raises and is recorded in `attempts`
+JAX_BLOCKER = r"""
 import importlib.abc
 import sys
 
@@ -151,6 +152,9 @@ class BlockJax(importlib.abc.MetaPathFinder):
 
 
 sys.meta_path.insert(0, BlockJax())
+"""
+
+_NO_JAX_ENCODE = JAX_BLOCKER + r"""
 import numpy as np
 from svt_av1_psy_tpu_torch.utils.test_clip import make_frame
 from svt_av1_psy_tpu_torch.api import Encoder, EncoderConfig, PredStructure
@@ -294,12 +298,9 @@ def test_hme_search2_route_raises(default_route):
 
 
 def test_unported_methods_raise():
-    """Only the multi-device decide still raises. The screen-content key
-    and the LR search run, with the reference's results on a 64x64
-    frame."""
+    """No method raises any more. The screen-content key and the LR
+    search run, with the reference's results on a 64x64 frame."""
     enc = port_fi.FastIntraEncoder(64, 64, qindex=120, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        enc.make_sharded_decide(None)
     ref = ref_fi.FastIntraEncoder(64, 64, qindex=120)
     y = np.zeros((64, 64), np.uint8)
     y[8:12, 4:60:3] = 200

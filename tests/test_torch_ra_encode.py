@@ -101,17 +101,6 @@ def test_ra_encode_with_tf_is_dav1d_exact(bd):
     _check_stream(_encode(enc, frames), n)
 
 
-def test_gop_meshes_raise():
-    enc = Encoder(_cfg(2), 176, 144, device="cpu")
-    enc._ra.gop_meshes = [object()]
-    try:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            for f in _frames(176, 144, 5):
-                enc.send_picture(*f)
-    finally:
-        enc.close()
-
-
 # --- drift guards ------------------------------------------------------
 
 def _lines_between(source, regions):

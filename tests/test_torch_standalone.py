@@ -49,6 +49,7 @@ _MODULE_TOKEN = re.compile(r"(?:jax|jaxlib|svt_av1_psy_tpu)(?:\.[A-Za-z_]\w*)*")
 # differ from the reference's, or exist on one side only
 PORTED = {
     "api.py": {"<imports>", "__all__", "Encoder.__init__"},
+    "capi_bridge.py": {"make_encoder"},
     "app/cli.py": {"main"},
     "app/main.py": set(),                          # its docstring only
     "models/fast_intra.py": {
@@ -69,10 +70,9 @@ PORTED = {
         "DeviceLrSearch.__init__", "DeviceLrSearch._build",
         "DeviceLrSearch.dispatch"},
     "models/ra.py": {
-        "<imports>", "_SHARDED_GOP_CACHE", "_sharded_gop_search",
-        "RaDriver.__init__", "RaDriver._warmup_async",
-        "RaDriver._tf_device_dispatch", "RaDriver._dispatch_gop",
-        "RaDriver._walk_gop"},
+        "<imports>", "_sharded_gop_search", "RaDriver.__init__",
+        "RaDriver._warmup_async", "RaDriver._tf_device_dispatch",
+        "RaDriver._dispatch_gop", "RaDriver._walk_gop"},
     "models/temporal_filter.py": {"temporal_filter"},
     "models/tpl.py": {"tpl_sb_offsets", "tpl_gop_q"},
     "native.py": {"_BUILD", "_SO", "_STAMP", "_build", "get_lib"},
@@ -365,3 +365,21 @@ def test_native_libraries_are_separate():
     assert port._name != ref._name and port._handle != ref._handle
     assert port_native._STAMP.read_text().strip() == \
         port_native._src_digest()
+
+
+def test_capi_shim_differs_only_in_the_module():
+    """The port's C API shim is the reference's native/capi_backend.c with
+    its two module literals pointed at the port's bridge, built under
+    svt_av1_psy_tpu_torch/_build (never into native/)."""
+    from svt_av1_psy_tpu_torch import capi_build
+    ref = (ROOT / "native" / "capi_backend.c").read_text().splitlines()
+    got = capi_build.patched_source().splitlines()
+    assert len(got) == len(ref)
+    changed = [(a, b) for a, b in zip(ref, got) if a != b]
+    assert len(changed) == 2
+    for a, b in changed:
+        assert b == a.replace('"svt_av1_psy_tpu.capi_bridge"',
+                              '"svt_av1_psy_tpu_torch.capi_bridge"')
+    assert capi_build.SRC == ROOT / "native" / "capi_backend.c"
+    for path in (capi_build.OUT, capi_build.PATCHED, capi_build.STAMP):
+        assert path.parent == PORT / "_build"
