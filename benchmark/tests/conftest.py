@@ -1,0 +1,11 @@
+"""The benchmark's tests run on the CPU at small sizes; those marked cuda
+run on the card and skip elsewhere (decided inside the test)."""
+
+import os
+import sys
+
+BENCH = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ROOT = os.path.dirname(BENCH)
+for p in (BENCH, ROOT):
+    if p not in sys.path:
+        sys.path.insert(0, p)
