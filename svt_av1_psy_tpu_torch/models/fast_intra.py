@@ -167,6 +167,8 @@ class FastIntraEncoder:
         self.tile_row_starts = list(range(0, sb_rows, th_sb)) + [sb_rows]
         self.n_tile_rows = len(self.tile_row_starts) - 1
         self.n_tiles = len(self.tile_col_starts) - 1
+        from svt_av1_psy_tpu_torch.utils import trace as _tr
+        _tr.set_tile_grid(self.n_tiles, self.n_tile_rows)
         # initialize the native layer once, single-threaded (tile engines
         # are constructed inside worker threads)
         native.CommitEngine(64, 64, bd)
@@ -481,6 +483,7 @@ class FastIntraEncoder:
         # single-shot; drop it so the retry re-dispatches cleanly
 
     def _encode_key(self, y, u, v, order_hint=None) -> EncodedFrame:
+        from svt_av1_psy_tpu_torch.utils import trace as _tr
         from svt_av1_psy_tpu_torch.utils.trace import stage as _tstage
 
         # screen-content key frames (--scm 2 auto-detection at the fast
@@ -616,14 +619,16 @@ class FastIntraEncoder:
             if getattr(self, "tx_split_search", False):
                 eng.set_tx_select(True)
             ec = native.NativeRangeEncoder()
-            eng.encode_intra(ec, tile_fcs[ti], split, modes, sbq=sbq,
-                             dq_res_log2=dq_res_log2, base_q=base_q,
-                             mi_bounds=(r0, r1, c0, c1),
-                             n_cands=self.n_cands)
+            with _tr.tile_span(walk, ti):
+                eng.encode_intra(ec, tile_fcs[ti], split, modes, sbq=sbq,
+                                 dq_res_log2=dq_res_log2, base_q=base_q,
+                                 mi_bounds=(r0, r1, c0, c1),
+                                 n_cands=self.n_cands)
             return ec.done()
 
         import os as _os
         with _tstage("intra_commit_walk"):
+            walk = _tr.walk_begin()
             if n_tiles_total == 1 or _os.environ.get("SVT_TILE_SEQ"):
                 tile_bytes = [encode_tile(i) for i in range(n_tiles_total)]
             else:
@@ -631,6 +636,7 @@ class FastIntraEncoder:
                 with ThreadPoolExecutor(max_workers=n_tiles_total) as tp:
                     tile_bytes = list(tp.map(encode_tile,
                                              range(n_tiles_total)))
+            _tr.walk_end(walk)
 
         # tile group assembly (spec 5.11.1): OBU_FRAME requires
         # tile_start_and_end_present_flag == 0 (one aligned zero bit),
@@ -797,6 +803,7 @@ class FastIntraEncoder:
         models/ra.py): explicit ref_slot / refresh / order_hint /
         base_q / show — the driver owns the pyramid (ref
         pd_process.c prediction-structure roles)."""
+        from svt_av1_psy_tpu_torch.utils import trace as _tr
         from svt_av1_psy_tpu_torch.utils.trace import stage as _tstage
 
         native = self._native
@@ -1158,11 +1165,12 @@ class FastIntraEncoder:
             if getattr(self, "inter_tx_split", False):
                 eng.set_tx_select(True)
             ec = native.NativeRangeEncoder()
-            eng.encode_inter(ec, tile_fcs[ti], split, modes, mv16,
-                             sbq=sbq, dq_res_log2=dq_res_log2,
-                             base_q=base_q,
-                             mi_bounds=(r0, r1, c0, c1),
-                             n_cands=self.n_cands, mv16b=mv16b)
+            with _tr.tile_span(walk, ti):
+                eng.encode_inter(ec, tile_fcs[ti], split, modes, mv16,
+                                 sbq=sbq, dq_res_log2=dq_res_log2,
+                                 base_q=base_q,
+                                 mi_bounds=(r0, r1, c0, c1),
+                                 n_cands=self.n_cands, mv16b=mv16b)
             grid_exp = None
             if self.enable_mfmv and not never_referenced:
                 grid_exp = (eng.grid_read(), (r0, r1, c0, c1))
@@ -1171,8 +1179,10 @@ class FastIntraEncoder:
         import os as _os
         # a deferred leaf filter from two frames ago may still be
         # running on this ping-pong buffer
-        self._join_pending_filter(self._rec_y)
+        with _tr.span("filter_join"):
+            self._join_pending_filter(self._rec_y)
         with _tstage("inter_commit_walk"):
+            walk = _tr.walk_begin()
             if n_tiles_total == 1 or _os.environ.get("SVT_TILE_SEQ"):
                 tile_out = [encode_tile(i) for i in range(n_tiles_total)]
             else:
@@ -1180,6 +1190,7 @@ class FastIntraEncoder:
                 with ThreadPoolExecutor(max_workers=n_tiles_total) as tp:
                     tile_out = list(tp.map(encode_tile,
                                            range(n_tiles_total)))
+            _tr.walk_end(walk)
         tile_bytes = [t[0] for t in tile_out]
 
         # spec 7.20 motion-field storage for later frames' MFMV (dead
@@ -1533,22 +1544,24 @@ class FastIntraEncoder:
                                    self.width, self.height, self.bd,
                                    damping, st, apply=False, sample=sample)
 
-        base_y, base_c = sse((0, 0, 0, 0), 4)
-        best_y, cost_y = 0, base_y
-        for pri in (1, 2, 4, 7, 12):
-            cy, _ = sse((pri, 0, 0, 0), 4)
-            if cy < cost_y:
-                best_y, cost_y = pri, cy
-        best_ys = 0
-        for sec in (1, 2):
-            cy, _ = sse((best_y, sec, 0, 0), 4)
-            if cy < cost_y:
-                best_ys, cost_y = sec, cy
-        best_c, cost_c = 0, base_c
-        for pri in (1, 2, 4):
-            _, cc2 = sse((0, 0, pri, 0), 4)
-            if cc2 < cost_c:
-                best_c, cost_c = pri, cc2
+        from svt_av1_psy_tpu_torch.utils import trace as _tr
+        with _tr.span("cdef_search"):
+            base_y, base_c = sse((0, 0, 0, 0), 4)
+            best_y, cost_y = 0, base_y
+            for pri in (1, 2, 4, 7, 12):
+                cy, _ = sse((pri, 0, 0, 0), 4)
+                if cy < cost_y:
+                    best_y, cost_y = pri, cy
+            best_ys = 0
+            for sec in (1, 2):
+                cy, _ = sse((best_y, sec, 0, 0), 4)
+                if cy < cost_y:
+                    best_ys, cost_y = sec, cy
+            best_c, cost_c = 0, base_c
+            for pri in (1, 2, 4):
+                _, cc2 = sse((0, 0, pri, 0), 4)
+                if cc2 < cost_c:
+                    best_c, cost_c = pri, cc2
         st = (best_y, best_ys, best_c, 0)
         self._cdef_cache = st
         if any(st):
@@ -1577,39 +1590,43 @@ class FastIntraEncoder:
         cH, cW = (H + 1) // 2, (W + 1) // 2
         bd = self.bd
         out = {}
+        from svt_av1_psy_tpu_torch.utils import trace as _tr
+        token = _tr.handoff()
 
         def task():
-            ly, lu, lv_ = dlf_levels
-            if ly:
-                native.dlf_apply(ry, lf_y, True, ly, ly, 0, bd, rows,
-                                 cols, W, H)
-            if lu:
-                native.dlf_apply(ru, lf_uv, False, lu, lu, 0, bd,
-                                 crows, ccols, cW, cH)
-            if lv_:
-                native.dlf_apply(rv, lf_uv, False, lv_, lv_, 0, bd,
-                                 crows, ccols, cW, cH)
-            pre_cdef = None
-            if lr_dec is not None:
-                pre_cdef = (ry.copy(), ru.copy(), rv.copy())
-            if any(cdef_st):
-                native.cdef_run((ry, ru, rv), (yp, up, vp), skip, W, H,
-                                bd, damping, cdef_st, apply=True)
-            if lr_dec is not None:
-                # signalled LR params apply normatively; the device
-                # search for the NEXT frame's params is NOT re-dispatched
-                # here — a leaf keeps the pending decision live for its
-                # successor (the cross-frame parameter cache tolerates
-                # one extra frame of staleness)
-                from svt_av1_psy_tpu_torch.ops.restoration import apply_lr_frame
-                cw2, ch2 = (W + 1) // 2, (H + 1) // 2
-                dims = [(W, H), (cw2, ch2), (cw2, ch2)]
-                apply_lr_frame([ry, ru, rv], list(pre_cdef), dims,
-                               lr_dec.lr_type, lr_dec.unit_size,
-                               lr_dec.units, bd=bd)
-            dt = np.uint8 if bd == 8 else np.uint16
-            out["rec"] = (ry[:H, :W].astype(dt), ru[:cH, :cW].astype(dt),
-                          rv[:cH, :cW].astype(dt))
+            with _tr.span("leaf_filter", token):
+                ly, lu, lv_ = dlf_levels
+                if ly:
+                    native.dlf_apply(ry, lf_y, True, ly, ly, 0, bd, rows,
+                                     cols, W, H)
+                if lu:
+                    native.dlf_apply(ru, lf_uv, False, lu, lu, 0, bd,
+                                     crows, ccols, cW, cH)
+                if lv_:
+                    native.dlf_apply(rv, lf_uv, False, lv_, lv_, 0, bd,
+                                     crows, ccols, cW, cH)
+                pre_cdef = None
+                if lr_dec is not None:
+                    pre_cdef = (ry.copy(), ru.copy(), rv.copy())
+                if any(cdef_st):
+                    native.cdef_run((ry, ru, rv), (yp, up, vp), skip, W, H,
+                                    bd, damping, cdef_st, apply=True)
+                if lr_dec is not None:
+                    # signalled LR params apply normatively; the device
+                    # search for the NEXT frame's params is NOT re-dispatched
+                    # here — a leaf keeps the pending decision live for its
+                    # successor (the cross-frame parameter cache tolerates
+                    # one extra frame of staleness)
+                    from svt_av1_psy_tpu_torch.ops.restoration import (
+                        apply_lr_frame)
+                    cw2, ch2 = (W + 1) // 2, (H + 1) // 2
+                    dims = [(W, H), (cw2, ch2), (cw2, ch2)]
+                    apply_lr_frame([ry, ru, rv], list(pre_cdef), dims,
+                                   lr_dec.lr_type, lr_dec.unit_size,
+                                   lr_dec.units, bd=bd)
+                dt = np.uint8 if bd == 8 else np.uint16
+                out["rec"] = (ry[:H, :W].astype(dt), ru[:cH, :cW].astype(dt),
+                              rv[:cH, :cW].astype(dt))
 
         th = threading.Thread(target=task, daemon=True)
         th.start()
@@ -1684,12 +1701,14 @@ class FastIntraEncoder:
                     best, best_sse = lv, sse
             return best
 
-        ly = pick(self._rec_y, yp, self._lf_y, True, lad_y, rows, cols,
-                  W, H)
-        lu = pick(self._rec_u, up, self._lf_uv, False, lad_c, crows, ccols,
-                  (W + 1) // 2, (H + 1) // 2)
-        lv_ = pick(self._rec_v, vp, self._lf_uv, False, lad_c, crows, ccols,
-                   (W + 1) // 2, (H + 1) // 2)
+        from svt_av1_psy_tpu_torch.utils import trace as _tr
+        with _tr.span("dlf_search"):
+            ly = pick(self._rec_y, yp, self._lf_y, True, lad_y, rows, cols,
+                      W, H)
+            lu = pick(self._rec_u, up, self._lf_uv, False, lad_c, crows,
+                      ccols, (W + 1) // 2, (H + 1) // 2)
+            lv_ = pick(self._rec_v, vp, self._lf_uv, False, lad_c, crows,
+                       ccols, (W + 1) // 2, (H + 1) // 2)
         if ly == 0:
             # chroma levels only coded when a luma level is nonzero
             lu = lv_ = 0

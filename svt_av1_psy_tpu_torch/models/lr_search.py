@@ -285,7 +285,11 @@ class DeviceLrSearch:
                 pw, ph = self.dims[plane]
                 args.append(_upload(np.asarray(planes[plane])[:ph, :pw],
                                     self.device))
-        return HostCopy(self._fn(*args))
+        from svt_av1_psy_tpu_torch.utils import trace as _tr
+        program = _tr.device_begin("lr_program", self.device)
+        packed = self._fn(*args)
+        _tr.device_end(program)
+        return HostCopy(packed)
 
     def finish(self, token, rdmult: float):
         """Fetch + apply the per-unit RDO -> LrDecision (or None)."""

@@ -457,6 +457,11 @@ class RaDriver:
         with _tstage("gop_dispatch"):
             dev = enc.device
             groups = None if tf_on else getattr(self, "gop_meshes", None)
+            # device time of the program, first launch to last result
+            # (one stream: not for device groups)
+            from svt_av1_psy_tpu_torch.utils import trace as _tr
+            program = None if groups else _tr.device_begin("gop_program",
+                                                           dev)
             planes_dev = None if groups else plane_tensor(planes, dev)
             if tf_on:
                 # TF window: sources at arf_d-4..arf_d-1, center (ARF)
@@ -523,13 +528,15 @@ class RaDriver:
                                           *chf).astype(dtype)
                     w2_v[T - 1] = _pad_to(np.asarray(frames[mid_d][2]),
                                           *chf).astype(dtype)
-                out = HostCopy(gop_search_tf(
+                packed = gop_search_tf(
                     planes_dev, edges, int(bias),
                     plane_tensor(win_u, dev), plane_tensor(win_v, dev),
                     win_idx, torch.from_numpy(win_mask),
                     float(self.tf_strength), enc.bd, enc.min_block,
                     plane_tensor(w2_u, dev), plane_tensor(w2_v, dev),
-                    w2_idx, torch.from_numpy(w2_mask)))
+                    w2_idx, torch.from_numpy(w2_mask))
+                _tr.device_end(program)
+                out = HostCopy(packed)
                 tf_n = 2
                 tf_mid = mid_d if tf_mid else None
             elif groups:
@@ -542,8 +549,10 @@ class RaDriver:
                 out = _sharded_gop_search(group)(planes, edges, int(bias),
                                                  enc.bd, enc.min_block)
             else:
-                out = HostCopy(gop_search(planes_dev, edges, int(bias),
-                                          enc.bd, enc.min_block))
+                packed = gop_search(planes_dev, edges, int(bias), enc.bd,
+                                    enc.min_block)
+                _tr.device_end(program)
+                out = HostCopy(packed)
         # dispatch-time base for the NEXT GoP's edges: this GoP's ARF
         # source (open-loop; its recon does not exist yet)
         self._disp_base_display = arf_d
@@ -586,27 +595,7 @@ class RaDriver:
         idx = task["idx"]
         self._tpl_q = None
         with _tstage("gop_fetch"):
-            import os as _os9
-            th = task.get("fetch_th")
-            if th is not None:
-                if _os9.environ.get("SVT_DEBUG_PIPE"):
-                    import time as _t
-                    _tj = _t.perf_counter()
-                    done = not th.is_alive()
-                    th.join()
-                    box9 = task.get("fetch_box") or {}
-                    print(f"[pipe] b={task['b']} fetch done_at_join={done}"
-                          f" thread_span={box9.get('t1', 0) - box9.get('t0', 0):.2f}"
-                          f" join_wait={_t.perf_counter() - _tj:.2f}",
-                          flush=True)
-                else:
-                    th.join()
-            box = task.get("fetch_box") or {}
-            if "err" in box:
-                raise box["err"]
-            buf = box.get("buf")
-            if buf is None:
-                buf = np.asarray(task["out"])
+            buf = np.asarray(task["out"])
         self._filtered_src = {}
         if task["tf"]:
             mv, sad, sad32, sad64, dec, filt = gop_search_tf_unpack(

@@ -65,58 +65,60 @@ def tpl_sb_offsets(cur_y: np.ndarray, future_ys, strength: float = 4.0,
     future_ys = [f for f in future_ys][:max_hops]
     if not future_ys:
         return None
-    from svt_av1_psy_tpu_torch.models.fast_intra import hme_mv_sad
+    from svt_av1_psy_tpu_torch.utils import trace as _tr
+    with _tr.span("tpl_sb_offsets"):
+        from svt_av1_psy_tpu_torch.models.fast_intra import hme_mv_sad
 
-    H, W = cur_y.shape
-    ph = (H + 15) // 16 * 16
-    pw = (W + 15) // 16 * 16
+        H, W = cur_y.shape
+        ph = (H + 15) // 16 * 16
+        pw = (W + 15) // 16 * 16
 
-    def pad(p):
-        return np.pad(np.asarray(p), ((0, ph - H), (0, pw - W)),
-                      mode="edge")
+        def pad(p):
+            return np.pad(np.asarray(p), ((0, ph - H), (0, pw - W)),
+                          mode="edge")
 
-    cp = pad(cur_y)
-    credit = np.zeros((ph // 2, pw // 2), np.float64)
-    for k, fy in enumerate(future_ys):
-        fp = pad(fy)
-        mv16, sad16 = hme_mv_sad(fp, cp, device)
-        mv16 = np.asarray(mv16, np.int64)
-        sad16 = np.asarray(sad16, np.int64)
-        act = _activity_halfres(_downsample2(fp))
-        ben = np.clip(act - sad16, 0, None).astype(np.float64) \
-            * (decay ** (k + 1))
-        n8r, n8c = ben.shape
-        hh, wh = credit.shape
-        for br in range(n8r):
-            for bc in range(n8c):
-                b = ben[br, bc]
-                if b <= 0:
-                    continue
-                # splat through the (half-res) motion vector onto the
-                # referenced 8x8 area of the current frame
-                y0 = br * 8 + int(mv16[br, bc, 0]) // 2
-                x0 = bc * 8 + int(mv16[br, bc, 1]) // 2
-                y0 = max(0, min(y0, hh - 8))
-                x0 = max(0, min(x0, wh - 8))
-                credit[y0:y0 + 8, x0:x0 + 8] += b / 64.0
+        cp = pad(cur_y)
+        credit = np.zeros((ph // 2, pw // 2), np.float64)
+        for k, fy in enumerate(future_ys):
+            fp = pad(fy)
+            mv16, sad16 = hme_mv_sad(fp, cp, device)
+            mv16 = np.asarray(mv16, np.int64)
+            sad16 = np.asarray(sad16, np.int64)
+            act = _activity_halfres(_downsample2(fp))
+            ben = np.clip(act - sad16, 0, None).astype(np.float64) \
+                * (decay ** (k + 1))
+            n8r, n8c = ben.shape
+            hh, wh = credit.shape
+            for br in range(n8r):
+                for bc in range(n8c):
+                    b = ben[br, bc]
+                    if b <= 0:
+                        continue
+                    # splat through the (half-res) motion vector onto the
+                    # referenced 8x8 area of the current frame
+                    y0 = br * 8 + int(mv16[br, bc, 0]) // 2
+                    x0 = bc * 8 + int(mv16[br, bc, 1]) // 2
+                    y0 = max(0, min(y0, hh - 8))
+                    x0 = max(0, min(x0, wh - 8))
+                    credit[y0:y0 + 8, x0:x0 + 8] += b / 64.0
 
-    self_cost = _activity_halfres(_downsample2(cp)).astype(np.float64)
-    cost_px = np.repeat(np.repeat(self_cost / 64.0, 8, 0), 8, 1)
-    sb_rows = (H + 63) // 64
-    sb_cols = (W + 63) // 64
+        self_cost = _activity_halfres(_downsample2(cp)).astype(np.float64)
+        cost_px = np.repeat(np.repeat(self_cost / 64.0, 8, 0), 8, 1)
+        sb_rows = (H + 63) // 64
+        sb_cols = (W + 63) // 64
 
-    def sb_sum(plane):
-        p = np.zeros((sb_rows * 32, sb_cols * 32), np.float64)
-        p[:plane.shape[0], :plane.shape[1]] = \
-            plane[:sb_rows * 32, :sb_cols * 32]
-        return p.reshape(sb_rows, 32, sb_cols, 32).sum((1, 3))
+        def sb_sum(plane):
+            p = np.zeros((sb_rows * 32, sb_cols * 32), np.float64)
+            p[:plane.shape[0], :plane.shape[1]] = \
+                plane[:sb_rows * 32, :sb_cols * 32]
+            return p.reshape(sb_rows, 32, sb_cols, 32).sum((1, 3))
 
-    cred_sb = sb_sum(credit)
-    cost_sb = sb_sum(cost_px)
-    r = cred_sb / np.maximum(cost_sb, 1.0)
-    off = -strength * np.log2(1.0 + r)
-    off -= off.mean()                      # rate-neutral (beta rule)
-    return np.clip(np.rint(off), -12, 12).astype(np.int32)
+        cred_sb = sb_sum(credit)
+        cost_sb = sb_sum(cost_px)
+        r = cred_sb / np.maximum(cost_sb, 1.0)
+        off = -strength * np.log2(1.0 + r)
+        off -= off.mean()                      # rate-neutral (beta rule)
+        return np.clip(np.rint(off), -12, 12).astype(np.int32)
 
 
 def qindex_for_qstep_ratio(base_q: int, ratio: float, bd: int = 8) -> int:

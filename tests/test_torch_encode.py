@@ -8,11 +8,13 @@ blocked runs every route and the CLI), refuse a GPU it does not have, and route
 every single-device config as the reference does.
 """
 
+import ast
 import inspect
 import os
 import pathlib
 import subprocess
 import sys
+import textwrap
 
 import numpy as np
 import pytest
@@ -26,7 +28,8 @@ from svt_av1_psy_tpu_torch.api import Encoder, EncoderConfig, PredStructure
 from svt_av1_psy_tpu_torch.models import fast_intra as port_fi
 from svt_av1_psy_tpu_torch.models import intra_encoder as port_ie
 from svt_av1_psy_tpu_torch.models import ra as port_ra
-from test_torch_standalone import ref_cfg, reference_source
+from test_torch_standalone import (ref_cfg, reference_source, without_trace,
+                                   without_trace_lines)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT / "tools"))
@@ -318,11 +321,12 @@ def test_unported_methods_raise():
 
 def _outside_device_block(source):
     """Source lines of _encode_p outside the low-delay branch of its
-    device-search block, blank lines and the reference's jax imports
-    dropped."""
-    lines = [ln for ln in source.split("\n")
-             if ln.strip() and ln.strip() not in ("import jax",
-                                                  "import jax.numpy as jnp")]
+    device-search block, blank lines, the reference's jax imports and the
+    port's tracing (without_trace_lines) dropped."""
+    lines = without_trace_lines(
+        [ln for ln in source.split("\n")
+         if ln.strip() and ln.strip() not in ("import jax",
+                                              "import jax.numpy as jnp")])
     i = next(i for i, ln in enumerate(lines)
              if 'with _tstage("device_search"):' in ln)
     i0 = next(j for j in range(i, len(lines)) if lines[j].strip() == "else:")
@@ -338,6 +342,18 @@ def test_encode_p_copy_has_not_drifted():
         reference_source(port_fi.FastIntraEncoder._encode_p))
     assert len(ref) > 400
     assert port == ref
+
+
+@pytest.mark.parametrize("name", ["_encode_key", "_search_apply_cdef",
+                                  "_deferred_filter_task",
+                                  "_pick_and_apply_dlf"])
+def test_traced_copy_has_not_drifted(name):
+    """The copied methods that the port only traces are the reference's
+    statement for statement once the tracing is taken out, and traced."""
+    ref = inspect.getsource(getattr(ref_fi.FastIntraEncoder, name))
+    port = reference_source(getattr(port_fi.FastIntraEncoder, name))
+    assert without_trace(port) == without_trace(ref)
+    assert without_trace(port) != ast.dump(ast.parse(textwrap.dedent(port)))
 
 
 @pytest.mark.cuda

@@ -127,8 +127,12 @@ _DISPATCH_REGIONS = [
      "# dispatch-time base for the NEXT GoP's edges"),
     ('return {"frames": frames', '"n": len(buf)'),
 ]
+# the parts of _walk_gop that differ: its imports of the unpack functions,
+# and the gop_fetch stage's body, where the reference joins its fetch
+# thread (the port's results come home through a HostCopy, with no thread)
 _WALK_REGIONS = [
     ('emission)."""', "from svt_av1_psy_tpu.utils.trace import stage"),
+    ('with _tstage("gop_fetch"):', "self._filtered_src = {}"),
 ]
 
 

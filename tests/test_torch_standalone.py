@@ -20,6 +20,7 @@ import inspect
 import pathlib
 import re
 import sys
+import textwrap
 
 import numpy as np
 import pytest
@@ -60,8 +61,12 @@ PORTED = {
         "FastIntraEncoder.make_sharded_decide",
         "FastIntraEncoder._decide_dispatch",
         "FastIntraEncoder._decide_finish", "FastIntraEncoder.prefetch_decide",
-        "FastIntraEncoder._encode_p", "FastIntraEncoder._encode_key_sc",
-        "FastIntraEncoder._lr_apply_and_search"},
+        "FastIntraEncoder._encode_key", "FastIntraEncoder._encode_p",
+        "FastIntraEncoder._encode_key_sc",
+        "FastIntraEncoder._lr_apply_and_search",
+        "FastIntraEncoder._search_apply_cdef",
+        "FastIntraEncoder._deferred_filter_task",
+        "FastIntraEncoder._pick_and_apply_dlf"},
     "models/intra_encoder.py": {
         "<imports>", "_jitted_block_costs", "IntraEncoder.__init__",
         "IntraEncoder._decide"},
@@ -76,11 +81,9 @@ PORTED = {
     "models/temporal_filter.py": {"temporal_filter"},
     "models/tpl.py": {"tpl_sb_offsets", "tpl_gop_q"},
     "native.py": {"_BUILD", "_SO", "_STAMP", "_build", "get_lib"},
-    "utils/trace.py": {"_jax_trace_dir", "_jax_started",
-                       "maybe_start_device_trace", "_dump"},
 }
 # modules of the port's own that share a reference module's name only
-OWN = {"__init__.py", "utils/device.py"}
+OWN = {"__init__.py", "utils/device.py", "utils/trace.py"}
 
 
 def _rel(p):
@@ -99,6 +102,71 @@ def reference_source(fn) -> str:
     """The source of a function of the port with its import prefix renamed
     back to the reference's: what the per-method drift guards compare."""
     return _PORT_IMPORT.sub(r"\1svt_av1_psy_tpu", inspect.getsource(fn))
+
+
+_TRACE_IMPORT = "from svt_av1_psy_tpu.utils import trace as _tr"
+_TRACE_STMT = re.compile(r"^\s*(?:\w+ = )?_tr\.\w+\(.*\)$")
+_TRACE_WITH = re.compile(r"^(\s*)with _tr\.\w+\(.*\):$")
+
+
+def without_trace_lines(lines):
+    """Source lines of a port method (from reference_source) with its
+    tracing taken out: the import of the trace module as _tr, one-line
+    statements that call it, and each `with _tr...:` line, whose block is
+    moved back out by one indent. What is left is what a per-method
+    drift guard compares with the reference, line by line."""
+    out = []
+    drop_to = None              # indent of an open `with _tr` line
+    for ln in lines:
+        ind = len(ln) - len(ln.lstrip())
+        if drop_to is not None and ln.strip() and ind <= drop_to:
+            drop_to = None
+        if ln.strip() == _TRACE_IMPORT or _TRACE_STMT.match(ln):
+            continue
+        m = _TRACE_WITH.match(ln)
+        if m:
+            assert drop_to is None, "nested trace blocks"
+            drop_to = len(m.group(1))
+            continue
+        out.append(ln[4:] if drop_to is not None and ln.strip() else ln)
+    return out
+
+
+def _is_trace_call(node):
+    return isinstance(node, ast.Call) and \
+        isinstance(node.func, ast.Attribute) and \
+        isinstance(node.func.value, ast.Name) and node.func.value.id == "_tr"
+
+
+def _strip_trace_body(body):
+    out = []
+    for stmt in body:
+        if isinstance(stmt, ast.ImportFrom) and \
+                ast.unparse(stmt) == _TRACE_IMPORT:
+            continue
+        if isinstance(stmt, (ast.Expr, ast.Assign)) and \
+                _is_trace_call(stmt.value):
+            continue
+        if isinstance(stmt, ast.With) and \
+                all(_is_trace_call(i.context_expr) for i in stmt.items):
+            out += _strip_trace_body(stmt.body)
+            continue
+        for field in ("body", "orelse", "finalbody"):
+            if isinstance(getattr(stmt, field, None), list):
+                setattr(stmt, field, _strip_trace_body(getattr(stmt, field)))
+        for h in getattr(stmt, "handlers", []):
+            h.body = _strip_trace_body(h.body)
+        out.append(stmt)
+    return out
+
+
+def without_trace(source: str) -> str:
+    """The AST dump of a function's source (from reference_source) with
+    its tracing taken out, as without_trace_lines does, at any depth and
+    whatever the line breaks."""
+    tree = ast.parse(textwrap.dedent(source))
+    tree.body = _strip_trace_body(tree.body)
+    return ast.dump(tree)
 
 
 def ref_cfg(cfg):
