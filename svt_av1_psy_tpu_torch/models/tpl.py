@@ -22,7 +22,9 @@ half-res block.
 
 The port's copy of svt_av1_psy_tpu/models/tpl.py: tpl_sb_offsets and the
 edge_results=None fallback of tpl_gop_q run their motion search through
-the port's hme_mv_sad on a ``device=`` argument; the rest is the
+the port's hme_mv_sad on a ``device=`` argument, and tpl_sb_offsets
+splats its credit in one ordered bincount (_splat_credit, the same
+float64 plane as the reference's per-block loop); the rest is the
 reference's code (tests/test_torch_standalone.py guards it).
 """
 
@@ -53,6 +55,33 @@ def _downsample2(y: np.ndarray) -> np.ndarray:
             + a[1::2, 1::2] + 2) >> 2
 
 
+def _splat_credit(bens, mvs, shape) -> np.ndarray:
+    """The lookahead's credit plane: each block with a positive benefit b
+    adds b / 64 to the 8x8 half-res area its motion vector points at,
+    clamped into the plane.
+
+    bens: per lookahead frame, nearest first, the (n8r, n8c) float64
+    benefits; mvs: the matching (n8r, n8c, 2) int64 full-pel MVs; shape:
+    the half-res plane's (hh, wh). One weighted bincount over the
+    contributions in frame, then row-major block order: it adds each
+    pixel's terms one at a time from 0.0 in that order, as a slice add
+    per block does, so the float64 plane is the same to the bit."""
+    hh, wh = shape
+    area = (np.arange(8)[:, None] * wh + np.arange(8)).ravel()
+    corner, val = [], []
+    for ben, mv in zip(bens, mvs):
+        br, bc = np.nonzero(ben > 0)
+        y0 = np.clip(br * 8 + mv[br, bc, 0] // 2, 0, hh - 8)
+        x0 = np.clip(bc * 8 + mv[br, bc, 1] // 2, 0, wh - 8)
+        corner.append(y0 * wh + x0)
+        val.append(ben[br, bc] / 64.0)
+    idx = (np.concatenate(corner)[:, None] + area).ravel()
+    credit = np.bincount(idx, np.repeat(np.concatenate(val), 64),
+                         minlength=hh * wh)
+    # with no positive block the count comes back as integer zeros
+    return credit.astype(np.float64, copy=False).reshape(hh, wh)
+
+
 def tpl_sb_offsets(cur_y: np.ndarray, future_ys, strength: float = 4.0,
                    decay: float = 0.7, max_hops: int = 3, *, device):
     """Per-superblock qindex offsets for `cur_y` given lookahead frames.
@@ -78,29 +107,16 @@ def tpl_sb_offsets(cur_y: np.ndarray, future_ys, strength: float = 4.0,
                           mode="edge")
 
         cp = pad(cur_y)
-        credit = np.zeros((ph // 2, pw // 2), np.float64)
+        bens, mvs = [], []
         for k, fy in enumerate(future_ys):
             fp = pad(fy)
             mv16, sad16 = hme_mv_sad(fp, cp, device)
-            mv16 = np.asarray(mv16, np.int64)
+            mvs.append(np.asarray(mv16, np.int64))
             sad16 = np.asarray(sad16, np.int64)
             act = _activity_halfres(_downsample2(fp))
-            ben = np.clip(act - sad16, 0, None).astype(np.float64) \
-                * (decay ** (k + 1))
-            n8r, n8c = ben.shape
-            hh, wh = credit.shape
-            for br in range(n8r):
-                for bc in range(n8c):
-                    b = ben[br, bc]
-                    if b <= 0:
-                        continue
-                    # splat through the (half-res) motion vector onto the
-                    # referenced 8x8 area of the current frame
-                    y0 = br * 8 + int(mv16[br, bc, 0]) // 2
-                    x0 = bc * 8 + int(mv16[br, bc, 1]) // 2
-                    y0 = max(0, min(y0, hh - 8))
-                    x0 = max(0, min(x0, wh - 8))
-                    credit[y0:y0 + 8, x0:x0 + 8] += b / 64.0
+            bens.append(np.clip(act - sad16, 0, None).astype(np.float64)
+                        * (decay ** (k + 1)))
+        credit = _splat_credit(bens, mvs, (ph // 2, pw // 2))
 
         self_cost = _activity_halfres(_downsample2(cp)).astype(np.float64)
         cost_px = np.repeat(np.repeat(self_cost / 64.0, 8, 0), 8, 1)

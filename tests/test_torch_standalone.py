@@ -79,7 +79,7 @@ PORTED = {
         "RaDriver._warmup_async", "RaDriver._tf_device_dispatch",
         "RaDriver._dispatch_gop", "RaDriver._walk_gop"},
     "models/temporal_filter.py": {"temporal_filter"},
-    "models/tpl.py": {"tpl_sb_offsets", "tpl_gop_q"},
+    "models/tpl.py": {"_splat_credit", "tpl_sb_offsets", "tpl_gop_q"},
     "native.py": {"_BUILD", "_SO", "_STAMP", "_build", "get_lib"},
 }
 # modules of the port's own that share a reference module's name only
