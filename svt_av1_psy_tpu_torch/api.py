@@ -325,7 +325,7 @@ class Encoder:
         shown packet per call; RA buffers a mini-GoP and returns its
         packets when complete (the send_picture/get_packet split of
         ref EbSvtAv1Enc.h)."""
-        from svt_av1_psy_tpu_torch.models.ra import RaPacket
+        from svt_av1_psy_tpu_torch.models.ra import RaPacket, _LazyRecon
         if self._ra is not None:
             y, u, v = self._fg_prepare(y, u, v)
             self._frames += 1
@@ -338,8 +338,9 @@ class Encoder:
             self._rc_track(pkts)
             return pkts
         out = self.encode(y, u, v)
-        return [RaPacket(out.payload, self._frames - 1,
-                         (out.recon_y, out.recon_u, out.recon_v))]
+        # the recon resolves when read: an all-intra frame's deferred
+        # in-loop filter is not joined before the packet goes out
+        return [RaPacket(out.payload, self._frames - 1, _LazyRecon(out))]
 
     def _rc_track(self, pkts):
         if self._rc is None:

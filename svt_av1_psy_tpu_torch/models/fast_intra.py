@@ -323,9 +323,13 @@ class FastIntraEncoder:
     def _decide_dispatch(self, yp: np.ndarray) -> HostCopy:
         """Launch the decision program on the device and start the copy
         of its packed uint8 result home; no host sync."""
+        from svt_av1_psy_tpu_torch.utils import trace as _tr
         bias = int(8 * ac_q(self.qindex, self.bd))
-        return HostCopy(intra_decide_packed(plane_tensor(yp, self.device),
-                                            bias, self.bd, self.min_block))
+        dev = _tr.device_begin("decide_program", self.device)
+        out = HostCopy(intra_decide_packed(plane_tensor(yp, self.device),
+                                           bias, self.bd, self.min_block))
+        _tr.device_end(dev)
+        return out
 
     def _decide_finish(self, out):
         """Maps of one packed decide buffer: a HostCopy from
@@ -376,11 +380,14 @@ class FastIntraEncoder:
         return downscale_horiz(np.asarray(y), self.width)
 
     def _take_decide(self, y, yp):
+        from svt_av1_psy_tpu_torch.utils import trace as _tr
         pend = getattr(self, "_pref", None)
         if isinstance(pend, dict):
             hit = pend.pop(id(y), None)
             if hit is not None:
+                _tr.count("decide.prefetched", 1.0)
                 return self._decide_finish(hit[1])
+        _tr.count("decide.prefetched", 0.0)
         return self._decide(yp)
 
     # --- frame -----------------------------------------------------------
@@ -574,7 +581,8 @@ class FastIntraEncoder:
 
         # the walk rewrites this ping-pong buffer: a deferred filter from
         # two frames ago may still be running on it
-        self._join_pending_filter(self._rec_y)
+        with _tr.span("filter_join"):
+            self._join_pending_filter(self._rec_y)
 
         # one engine + CDF context + range coder per tile; tile walks run
         # concurrently in threads (ctypes releases the GIL in C)

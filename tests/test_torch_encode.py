@@ -346,7 +346,7 @@ def test_encode_p_copy_has_not_drifted():
 
 @pytest.mark.parametrize("name", ["_encode_key", "_search_apply_cdef",
                                   "_deferred_filter_task",
-                                  "_pick_and_apply_dlf"])
+                                  "_pick_and_apply_dlf", "_take_decide"])
 def test_traced_copy_has_not_drifted(name):
     """The copied methods that the port only traces are the reference's
     statement for statement once the tracing is taken out, and traced."""

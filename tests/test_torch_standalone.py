@@ -49,7 +49,8 @@ _MODULE_TOKEN = re.compile(r"(?:jax|jaxlib|svt_av1_psy_tpu)(?:\.[A-Za-z_]\w*)*")
 # names, functions, classes and methods, keyed as `Class.method`) that may
 # differ from the reference's, or exist on one side only
 PORTED = {
-    "api.py": {"<imports>", "__all__", "Encoder.__init__"},
+    "api.py": {"<imports>", "__all__", "Encoder.__init__",
+               "Encoder.send_picture"},
     "capi_bridge.py": {"make_encoder"},
     "app/cli.py": {"main"},
     "app/main.py": set(),                          # its docstring only
@@ -61,6 +62,7 @@ PORTED = {
         "FastIntraEncoder.make_sharded_decide",
         "FastIntraEncoder._decide_dispatch",
         "FastIntraEncoder._decide_finish", "FastIntraEncoder.prefetch_decide",
+        "FastIntraEncoder._take_decide",
         "FastIntraEncoder._encode_key", "FastIntraEncoder._encode_p",
         "FastIntraEncoder._encode_key_sc",
         "FastIntraEncoder._lr_apply_and_search",
