@@ -28,8 +28,8 @@ Drives the port's paths once each through its public API, on "cuda", at
     __graft_entry__.py's entry and dryrun_multichip.
 Before that it builds every CUDA kernel from the sources in this checkout
 and holds each against its plain PyTorch version at the shapes the path
-gives it. K1 is the only hand-written kernel; the other device programs
-are plain PyTorch.
+gives it. K1 and the CDEF kernel are the hand-written kernels; the other
+device programs are plain PyTorch.
 
 Phases (each ends in torch.cuda.synchronize(); any failure exits non-zero
 and prints no result):
@@ -47,8 +47,19 @@ and prints no result):
      MB of L2, and its bound (the card's least time for the same work:
      its operations at the int8 peak, its bytes, in the pixels' own
      width, at the memory rate);
-  4. the LD encode on the K1 route: K1 must launch once per P frame; fps
-     and the SVT_TRACE stage times;
+  3a. the CDEF kernel (csrc/cdef.cu) against its plain version and the C
+     (native.cdef_run) on a 1080p frame at 8 and 10 bit: the encoder's
+     ladder table at sample 4 and three applies, equal; a call is one
+     kernel (torch.profiler over 10 calls); both times (CUDA events, in
+     turns, and the device time by torch.profiler) against their bound
+     (integer operations at the 32-bit lanes' rate, bytes at the memory
+     rate), and per frame the C's search + apply and apply against the
+     card's route's (kernels/cdef.py CardCdef: uploads, launches, the
+     copy home);
+ 4. the LD encode on the K1 route: K1 must launch once per P frame, the
+     CDEF kernel once per searching frame and once per apply of
+     strengths not all 0 (CdefLaunchLog; counted likewise in the C API,
+     CLI LD and north star runs); fps and the SVT_TRACE stage times;
   5. its first frames again on "cpu": the payload bytes must be equal;
   6. the plain programs of the default route and of random access at
      1088x1920 (hme_search2, hme_sad_tree, tf_filter_device with T = 5,
@@ -249,20 +260,41 @@ def k1_checks(np, torch, tb, hme_search_kernel, dev) -> int:
     return worst
 
 
-def k1_profile(torch, fn, calls: int):
+def k1_profile(torch, fn, calls: int, tries: int = 3, complete=bool,
+               warmup: bool = False):
     """`calls` calls of fn() under torch.profiler: (device kernels and
-    copies by name, PyTorch ops by name, device ms per call)."""
-    from torch.profiler import ProfilerActivity, profile
+    copies by name, PyTorch ops by name, device ms per call). On the
+    card's machine a session now and then records no device work at all,
+    or only some of it; a session whose device work fails `complete`
+    says nothing, and is taken again, up to `tries` times (the last
+    one's result is returned). warmup: each session first runs one call
+    in a profiler warm-up step, which is not kept (the tracer starts
+    there, so the first kept call is not lost to its start)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
     cuda = torch.autograd.DeviceType.CUDA
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    rows = prof.key_averages()
-    device = {r.key: r.count for r in rows if r.device_type == cuda}
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)
+                     if warmup else None) as prof:
+            if warmup:
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            if warmup:
+                prof.step()
+        # the warm-up's schedule adds its own ProfilerStep* range, which
+        # is the profiler's, not device work
+        rows = [r for r in prof.key_averages()
+                if not r.key.startswith("ProfilerStep")]
+        device = {r.key: r.count for r in rows if r.device_type == cuda}
+        if complete(device):
+            break
     ops = {r.key: r.count for r in rows
            if r.device_type != cuda and r.key.startswith("aten::")}
     ms = sum(r.self_device_time_total for r in rows
@@ -281,6 +313,264 @@ def k1_one_launch(torch, hme_search_kernel, s, f, what: str) -> None:
         fail(f"one K1 call on {what} planes launched {device}")
     if set(ops) - {"aten::empty"} or sum(ops.values()) != 2:
         fail(f"one K1 call on {what} planes ran the PyTorch ops {ops}")
+
+
+# 32-bit integer lanes: 64 per SM and clock, 132 SMs, 1.98 GHz boost
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
+CDEF_QUADS = ((4, 1, 2, 0), (0, 2, 0, 0), (12, 0, 0, 1))
+
+
+def cdef_frame(np, bd: int, seed: int = 11):
+    """A 1080p pre-CDEF frame in the encoder's buffers (the mi area and 64
+    more): textured planes, sources a little off them, and a skip map
+    with about 40% of its mi skip."""
+    rng = np.random.default_rng(seed)
+    top = (1 << bd) - 1
+    planes, srcs = [], []
+    for sh in (0, 1, 1):
+        ph, pw = (H >> sh) + 64, (W >> sh) + 64
+        yy, xx = np.mgrid[:ph, :pw]
+        base = top // 2 + top / 3 * np.sin(yy / (5 + sh) + xx / 7.0) * \
+            np.cos(xx / (9 - 3 * sh))
+        rec = np.clip(base + rng.normal(0, top / 40, (ph, pw)), 0, top)
+        src = np.clip(rec + rng.normal(0, top / 60, (ph, pw)), 0, top)
+        planes.append(rec.astype(np.uint16))
+        srcs.append(src.astype(np.uint16))
+    skip = (rng.random((H // 4, W // 4)) < 0.4).astype(np.uint8)
+    return planes, srcs, skip
+
+
+def cdef_phase(np, torch, dev, card, problems: list) -> dict:
+    """The CDEF kernel (csrc/cdef.cu) against its plain version and the C
+    (native.cdef_run) at 1080p, 8 and 10 bit: the encoder's ladder table
+    at sample 4 and three applies, equal; one call is one kernel; its
+    times against its bound, the plain version's and the C's, and the
+    encoder's route per frame (kernels/cdef.py CardCdef: uploads, the
+    launch, the copy home). Returns the kernel's entry of the JSON line;
+    a kernel that launches other than once a call joins `problems`."""
+    from svt_av1_psy_tpu_torch import native
+    from svt_av1_psy_tpu_torch.kernels import build, cdef
+    t0 = time.perf_counter()
+    build.build("cdef")
+    print(f"built cdef in {time.perf_counter() - t0:.2f} s")
+    print((build.BUILD / "cdef.log").read_text().strip())
+    gh, gw = H, W
+    mismatch = max_err = 0
+
+    def gap(a, b):
+        return int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) \
+            if a.numel() else 0
+
+    for bd in (8, 10):
+        planes, srcs, skip = cdef_frame(np, bd)
+        area = [torch.from_numpy(np.ascontiguousarray(
+            p[:gh >> s, :gw >> s]).view(np.int16)).to(dev)
+            for p, s in zip(planes, (0, 1, 1))]
+        src = [torch.from_numpy(s.astype(np.uint8) if bd == 8 else
+                                s.view(np.int16)).to(dev) for s in srcs]
+        b4 = torch.from_numpy(cdef.cdef_block_list(skip, 4)).to(dev)
+        b1 = torch.from_numpy(cdef.cdef_block_list(skip)).to(dev)
+        got = cdef.cdef_frame_kernel(area, src, b4, cdef.LADDER, bd, 5, W, H)
+        plain = cdef.cdef_frame_plain(area, src, b4, cdef.LADDER, bd, 5, W,
+                                      H)
+        c = [native.cdef_run(planes, srcs, skip, W, H, bd, 5, q, False,
+                             sample=4) for q in cdef.LADDER]
+        torch.cuda.synchronize()
+        c_sse = torch.tensor(c, dtype=torch.int64, device=dev)
+        bad = int((got != plain).sum()) + int((got != c_sse).sum())
+        max_err = max(max_err, gap(got, plain), gap(got, c_sse))
+        for q in CDEF_QUADS:
+            out = cdef.cdef_frame_kernel(area, None, b1, [q], bd, 5, W, H,
+                                         apply=True)
+            ref = cdef.cdef_frame_plain(area, None, b1, [q], bd, 5, W, H,
+                                        apply=True)
+            cp = [p.copy() for p in planes]
+            native.cdef_run(cp, srcs, skip, W, H, bd, 5, q, True)
+            for o, r, p, s in zip(out, ref, cp, (0, 1, 1)):
+                want = torch.from_numpy(np.ascontiguousarray(
+                    p[:gh >> s, :gw >> s]).view(np.int16)).to(dev)
+                bad += int((o != r).sum()) + int((o != want).sum())
+                max_err = max(max_err, gap(o, r), gap(o, want))
+        print(f"{bd}-bit: {len(b4)} sampled / {len(b1)} listed blocks; "
+              f"ladder table and {len(CDEF_QUADS)} applies: {bad} values "
+              f"differ from the plain version or the C (max |diff| "
+              f"{max_err})")
+        mismatch += bad
+    if mismatch:
+        fail(f"the CDEF kernel differs from its plain version or the C "
+             f"in {mismatch} values")
+
+    # times on the 8-bit frame, in turns (kernel, plain, plain, kernel)
+    planes, srcs, skip = cdef_frame(np, 8)
+    area = [torch.from_numpy(np.ascontiguousarray(
+        p[:gh >> s, :gw >> s]).view(np.int16)).to(dev)
+        for p, s in zip(planes, (0, 1, 1))]
+    src = [torch.from_numpy(s.astype(np.uint8)).to(dev) for s in srcs]
+    b4 = torch.from_numpy(cdef.cdef_block_list(skip, 4)).to(dev)
+    b1 = torch.from_numpy(cdef.cdef_block_list(skip)).to(dev)
+    fns = {"search": lambda f: f(area, src, b4, cdef.LADDER, 8, 5, W, H),
+           "apply": lambda f: f(area, None, b1, [CDEF_QUADS[0]], 8, 5, W, H,
+                                apply=True)}
+    ms = {}
+    for what, fn in fns.items():
+        runs = {"kernel": [], "plain": []}
+        for name in ("kernel", "plain", "plain", "kernel"):
+            f = cdef.cdef_frame_kernel if name == "kernel" else \
+                cdef.cdef_frame_plain
+            runs[name].append(cuda_ms(torch, lambda: fn(f),
+                                      5 if name == "kernel" else 2,
+                                      20 if name == "kernel" else 1))
+        ms[what] = {k: statistics.median(v) for k, v in runs.items()}
+        # 10 calls under torch.profiler: one kernel a call, beside the
+        # wrapper's memset (search) or plane copies (apply) and nothing
+        # else. A session that recorded fewer than 10 kernels lost some
+        # (it would also understate the time per call) and is taken again;
+        # none in 5 tries that shows exactly this fails the run
+        def kernels(device):
+            return sum(v for k, v in device.items() if "cdef_blocks" in k)
+
+        device, _, alone = k1_profile(
+            torch, lambda: fn(cdef.cdef_frame_kernel), 10, tries=5,
+            complete=lambda d: kernels(d) >= 10, warmup=True)
+        others = [k for k in device
+                  if "cdef_blocks" not in k and not k.startswith("Mem")]
+        print(f"10 {what} calls: device work {device}")
+        if others or kernels(device) != 10:
+            problems.append(f"10 CDEF {what} calls launched "
+                            f"{device or 'nothing torch.profiler recorded'}"
+                            " (5 tries)")
+            alone = 0.0
+        ms[what]["profiler"] = alone or None
+    # the C as the encoder called it, and the encoder's route, per frame
+    # the 11 trials of FastIntraEncoder._search_apply_cdef's ladder
+    ladder = ((0, 0, 0, 0), (1, 0, 0, 0), (2, 0, 0, 0), (4, 0, 0, 0),
+              (7, 0, 0, 0), (12, 0, 0, 0), (4, 1, 0, 0), (4, 2, 0, 0),
+              (0, 0, 1, 0), (0, 0, 2, 0), (0, 0, 4, 0))
+    src8 = [s.astype(np.uint8) for s in srcs]
+
+    def host_ms(fn, reps=5):
+        times = []
+        for _ in range(reps):
+            t = time.perf_counter()
+            fn()
+            times.append(1e3 * (time.perf_counter() - t))
+        return statistics.median(times)
+
+    def c_frame(search):
+        cp = [p.copy() for p in planes]
+        for q in (ladder if search else ()):
+            native.cdef_run(cp, srcs, skip, W, H, 8, 5, q, False, sample=4)
+        native.cdef_run(cp, srcs, skip, W, H, 8, 5, CDEF_QUADS[0], True)
+
+    def route_frame(search):
+        cp = [p.copy() for p in planes]
+        r = cdef.CardCdef(native, dev, src8)
+        for q in (ladder if search else ()):
+            r.cdef_run(cp, src8, skip, W, H, 8, 5, q, False, sample=4)
+        r.cdef_run(cp, src8, skip, W, H, 8, 5, CDEF_QUADS[0], True)
+
+    copy_ms = host_ms(lambda: [p.copy() for p in planes])
+    frame_ms = {f"{k}_{'search' if s else 'apply'}":
+                host_ms(lambda: fn(s)) - copy_ms
+                for k, fn in (("c", c_frame), ("route", route_frame))
+                for s in (True, False)}
+    n_s, n_a = len(b4), len(b1)
+    work = {"search": cdef.cdef_work(gh, gw, H, W, n_s, cdef.LADDER),
+            "apply": cdef.cdef_work(gh, gw, H, W, n_a, [CDEF_QUADS[0]],
+                                    apply=True)}
+    bound = {}
+    for what, (ops, nbytes) in work.items():
+        t_ops = 1e3 * ops / INT32_OPS_PER_S
+        t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+        bound[what] = (max(t_ops, t_bytes),
+                       "operations" if t_ops >= t_bytes else "bytes")
+        alone = ms[what]["profiler"]
+        print(f"CDEF {what} ({n_s if what == 'search' else n_a} blocks): "
+              f"kernel {ms[what]['kernel']:.4f} ms (CUDA events, 20 calls; "
+              "alone " + (f"{alone:.4f} ms" if alone else "not measured") +
+              f" by torch.profiler), plain {ms[what]['plain']:.3f} ms; "
+              f"bound {bound[what][0]:.4f} ms by {bound[what][1]} "
+              f"({ops:.4g} integer operations at {INT32_OPS_PER_S:.4g}/s, "
+              f"{nbytes:.4g} bytes at 3.35 TB/s): "
+              f"{bound[what][0] / (alone or ms[what]['kernel']):.3f} of the "
+              f"kernel's time{'' if alone else ' by CUDA events'} [{card}]")
+    f_ms = {k: f"{v:.2f}" for k, v in frame_ms.items()}
+    print("per frame, host clock (the plane copy taken out): C search + "
+          f"apply {f_ms['c_search']} ms, apply {f_ms['c_apply']} ms; the "
+          f"card's route search + apply {f_ms['route_search']} ms, apply "
+          f"{f_ms['route_apply']} ms [{card}]")
+    return {"name": "cdef_blocks", "route": "cuda",
+            "source": "svt_av1_psy_tpu_torch/csrc/cdef.cu",
+            "replaces": None, "max_abs_err": max_err,
+            "ms": ms["search"]["kernel"], "plain_ms": ms["search"]["plain"],
+            "bound_ms": bound["search"][0], "bound_by": bound["search"][1],
+            "library_ms": None, "profiler_kernel_ms": ms["search"]["profiler"],
+            "apply_ms": ms["apply"]["kernel"],
+            "apply_plain_ms": ms["apply"]["plain"],
+            "apply_bound_ms": bound["apply"][0],
+            "apply_profiler_kernel_ms": ms["apply"]["profiler"],
+            "frame_ms": frame_ms}
+
+
+class CdefLaunchLog:
+    """A spy on FastIntraEncoder's two CDEF sites, for the launches the
+    card's route must make: on a CUDA encoder a frame that searches makes
+    one table launch, and each apply of strengths not all 0 (on the encoder
+    thread or in the deferred filter) one launch. `frames` holds (searched,
+    strengths) per CDEF of a CUDA encoder; frames on the CPU expect none."""
+
+    def __init__(self):
+        from svt_av1_psy_tpu_torch.models.fast_intra import FastIntraEncoder
+        self.cls = FastIntraEncoder
+        self.orig = (FastIntraEncoder._search_apply_cdef,
+                     FastIntraEncoder._deferred_filter_task)
+        self.frames = []
+        log = self
+        search, defer = self.orig
+
+        def spy_search(enc, *args, **kwargs):
+            searched = enc._cdef_cache is None or not (
+                enc.frame_index % max(enc.cdef_search_interval, 1))
+            st, damping = search(enc, *args, **kwargs)
+            if enc.device.type == "cuda":
+                log.frames.append((searched, tuple(st)))
+            return st, damping
+
+        def spy_defer(enc, yp, up, vp, base_q, dlf_levels, cdef_st, *args,
+                      **kwargs):
+            if enc.device.type == "cuda":
+                log.frames.append((False, tuple(cdef_st)))
+            return defer(enc, yp, up, vp, base_q, dlf_levels, cdef_st,
+                         *args, **kwargs)
+
+        FastIntraEncoder._search_apply_cdef = spy_search
+        FastIntraEncoder._deferred_filter_task = spy_defer
+
+    def reset(self) -> None:
+        from svt_av1_psy_tpu_torch.kernels.cdef import cdef_frame_kernel
+        self.frames = []
+        cdef_frame_kernel.launches = 0
+
+    def check(self, what: str, problems=None) -> int:
+        """The kernel's launches since reset(); a count other than the
+        route's fails the run (or joins `problems`)."""
+        from svt_av1_psy_tpu_torch.kernels.cdef import cdef_frame_kernel
+        got = cdef_frame_kernel.launches
+        want = sum(s + any(st) for s, st in self.frames)
+        print(f"{what}: CDEF kernel launches {got} (want {want}: "
+              f"{len(self.frames)} frames' CDEF on the card, "
+              f"{sum(s for s, _ in self.frames)} of them searching)")
+        if got != want or not self.frames:
+            msg = (f"{what}: the CDEF kernel launched {got} times, want "
+                   f"{want} for {len(self.frames)} frames on the card")
+            if problems is None:
+                fail(msg)
+            problems.append(msg)
+        return got
+
+    def close(self) -> None:
+        (self.cls._search_apply_cdef,
+         self.cls._deferred_filter_task) = self.orig
 
 
 def write_y4m(path, frames) -> None:
@@ -316,12 +606,13 @@ def decode_check(np, data: bytes, frames, what: str) -> list:
 
 
 def cli_ld_phase(np, json, torch, frames, tmp, trace_path, card,
-                 problems: list):
+                 problems: list, cdef_log):
     """This slice's main path: the port's CLI on a 1080p y4m, low delay
     (--keyint 0 --preset 10 --crf 30) on the K1 route, where the key
     frame's temporal filter and tpl_sb_offsets run their searches through
-    hme_mv_sad. Returns K1's launches in that run and the stream, which
-    the repo's own decoder reads after the last timed phase."""
+    hme_mv_sad. Returns K1's and the CDEF kernel's launches in that run
+    and the stream, which the repo's own decoder reads after the last
+    timed phase."""
     from svt_av1_psy_tpu_torch.kernels.hme import hme_search_kernel
     n = len(frames)
     clip = tmp / "ld.y4m"
@@ -359,9 +650,11 @@ def cli_ld_phase(np, json, torch, frames, tmp, trace_path, card,
         first = trace_lines(trace_path)
         out = tmp / "ld_cuda.ivf"
         hme_search_kernel.launches = 0
+        cdef_log.reset()
         secs = run_cli(torch, ["-i", str(clip), "-b", str(out),
                                "--device", "cuda"] + ld)
         launches = hme_search_kernel.launches
+        cdef_launches = cdef_log.check("CLI LD", problems)
         stages = trace_stages(json, trace_path, first)
         stages.update({k: list(v) for k, v in host.items()})
         short = {}
@@ -386,7 +679,7 @@ def cli_ld_phase(np, json, torch, frames, tmp, trace_path, card,
           f"IVF bytes {'equal' if same else 'differ'}")
     if not same:
         problems.append("CLI LD: cuda bytes differ from cpu's")
-    return launches, data
+    return launches, cdef_launches, data
 
 
 def cli_ra_phase(np, json, torch, make_frame, tmp, trace_path, card,
@@ -514,13 +807,18 @@ def psnr_check(np, frame_y, rec_y, what: str) -> float:
 
 
 def trace_stages(json, trace_path, first_line: int) -> dict:
-    """{stage: [ms per frame]} of the SVT_TRACE lines from first_line on."""
+    """{stage or counter: [value per frame]} of the SVT_TRACE per-frame
+    lines from first_line on (the host facts, span and counter records
+    that the file holds beside them are left out)."""
     stages = {}
     lines = trace_path.read_text().splitlines() if trace_path.exists() \
         else []
     for line in lines[first_line:]:
-        for name, ms in json.loads(line).items():
-            if name != "frame":
+        rec = json.loads(line)
+        if "frame" not in rec or "span" in rec or "counter" in rec:
+            continue
+        for name, ms in rec.items():
+            if name != "frame" and isinstance(ms, (int, float)):
                 stages.setdefault(name, []).append(ms)
     return stages
 
@@ -1000,13 +1298,14 @@ def capi_session(ctypes, lib, params):
     return h, send
 
 
-def capi_phase(np, torch, frames, hme_search_kernel, card):
+def capi_phase(np, torch, frames, hme_search_kernel, card, cdef_log):
     """The port's shim built from native/capi_backend.c and loaded through
     ctypes: 8 frames of the LD K1 cell through svt_tpu_enc_* on cuda. The
     payload bytes must equal an API run of the shim's config
     (capi_bridge.make_encoder: the shim's 8-bit config is not phase 4's,
     whose Encoder keeps the default encoder_bit_depth); K1 must launch
-    once per P frame. Returns (K1 launches, payloads)."""
+    once per P frame, the CDEF kernel as the route requires. Returns (K1
+    launches, CDEF launches, payloads)."""
     import ctypes
 
     from svt_av1_psy_tpu_torch import capi_bridge, capi_build
@@ -1029,6 +1328,7 @@ def capi_phase(np, torch, frames, hme_search_kernel, card):
     torch.cuda.synchronize()
     planes = [[np.ascontiguousarray(p) for p in f] for f in frames]
     hme_search_kernel.launches = 0
+    cdef_log.reset()
     t0 = time.perf_counter()
     h, send = capi_session(ctypes, lib, ["device=cuda"])
     got = [p for f in planes for p in send(*f)] + send(None)
@@ -1042,11 +1342,12 @@ def capi_phase(np, torch, frames, hme_search_kernel, card):
           f"{sum(map(len, got))} bytes; K1 launches {launches} [{card}]")
     if launches != n_p:
         fail(f"C API: K1 launched {launches} times for {n_p} P frames")
+    cdef_launches = cdef_log.check("C API")
     if got != want:
         fail(f"C API: payloads ({[len(p) for p in got]} B) differ from the "
              f"API run of the same config ({[len(p) for p in want]} B)")
     print("payload bytes equal to the API run of the same config")
-    return launches, got
+    return launches, cdef_launches, got
 
 
 def capi_standalone_phase(np, frames, tmp, payloads, card) -> None:
@@ -1231,6 +1532,7 @@ def main() -> None:
     from svt_av1_psy_tpu_torch.api import Encoder, EncoderConfig, \
         PredStructure
     from svt_av1_psy_tpu_torch.kernels import build
+    from svt_av1_psy_tpu_torch.kernels.cdef import cdef_frame_kernel
     from svt_av1_psy_tpu_torch.kernels.hme import hme_search_kernel
     from svt_av1_psy_tpu_torch.ops import torch_backend as tb
     from svt_av1_psy_tpu_torch.utils.device import HostCopy
@@ -1304,10 +1606,16 @@ def main() -> None:
           f"{ops_ms:.5f} ms; {k1_bytes:.4g} bytes (uint8 planes in) at "
           f"3.35 TB/s -> {bytes_ms:.5f} ms; bound {bound_ms:.5f} ms, set by "
           f"{bound_by}; share {bound_ms / k1_ms:.4f} of the function's "
-          f"time, {bound_ms / kernel_ms:.4f} of the kernel's alone; the "
+          "time, " + (f"{bound_ms / kernel_ms:.4f}" if kernel_ms else
+                      "not measured") + " of the kernel's alone; the "
           f"10-bit bound {k1_bound(PAD_H, PAD_W, 10, 12)[0]:.5f} ms; no "
           f"single PyTorch call computes it [{card}]")
     del s, r, s10, r10, s32
+
+    phase("CDEF kernel (csrc/cdef.cu) vs plain and the C at 1080p, 8 and "
+          "10 bit")
+    problems = []
+    cdef_entry = cdef_phase(np, torch, dev, card, problems)
 
     phase(f"encode {N_FRAMES} frames 1080p LD preset 10 CRF 30 on cuda")
     rng = np.random.default_rng(7)
@@ -1316,11 +1624,15 @@ def main() -> None:
                         pred_structure=PredStructure.LOW_DELAY_B)
     enc = Encoder(cfg, W, H, device="cuda")
     hme_search_kernel.launches = 0
-    outs, frame_s = [], []
+    cdef_log = CdefLaunchLog()
+    cdef_log.reset()
+    outs, frame_s, cdef_per_frame = [], [], []
     t0 = time.perf_counter()
     for f in frames:
         tf = time.perf_counter()
+        before = cdef_frame_kernel.launches
         outs.append(enc.encode(*f))
+        cdef_per_frame.append(cdef_frame_kernel.launches - before)
         frame_s.append(time.perf_counter() - tf)
     enc.close()
     torch.cuda.synchronize()
@@ -1329,11 +1641,23 @@ def main() -> None:
     n_p = N_FRAMES - 1
     if launches != n_p:
         fail(f"K1 launched {launches} times for {n_p} P frames")
+    # the key frame searches (a table launch, an apply), each P frame
+    # applies the cached strengths (one launch; none where all are 0)
+    cdef_launches = cdef_log.check("LD K1 route")
+    if len(cdef_log.frames) != N_FRAMES:
+        fail(f"LD K1 route: {len(cdef_log.frames)} frames' CDEF on the "
+             f"card for {N_FRAMES} frames")
+    per_frame = {k: sorted({n for n, (searched, _) in
+                            zip(cdef_per_frame, cdef_log.frames)
+                            if searched == (k == "search_frame")})
+                 for k in ("search_frame", "other_frame")}
+    print(f"CDEF launches per frame {cdef_per_frame}, strengths "
+          f"{[st for _, st in cdef_log.frames]}")
     fps = N_FRAMES / total_s
     steady = (N_FRAMES - 1) / sum(frame_s[1:])
     print(f"{N_FRAMES} frames in {total_s:.3f} s: {fps:.3f} fps; frames "
-          f"2..{N_FRAMES} {steady:.3f} fps; K1 launches {launches} "
-          f"[{card}]")
+          f"2..{N_FRAMES} {steady:.3f} fps; K1 launches {launches}, CDEF "
+          f"{cdef_launches} [{card}]")
     print("frame ms: " + ", ".join(f"{1e3 * t:.1f}" for t in frame_s))
     print("bytes: " + ", ".join(str(len(o.payload)) for o in outs))
     print_stages(trace_stages(json, trace_path, 0))
@@ -1358,11 +1682,10 @@ def main() -> None:
 
     cli_dir = tempfile.TemporaryDirectory()
     tmp = pathlib.Path(cli_dir.name)
-    problems = []
     phase(f"C API in-process: {N_FRAMES} frames 1080p LD preset 10 CRF 30 "
           "through the port's shim on cuda, K1 route")
-    capi_launches, capi_payloads = capi_phase(np, torch, frames,
-                                              hme_search_kernel, card)
+    capi_launches, capi_cdef, capi_payloads = capi_phase(
+        np, torch, frames, hme_search_kernel, card, cdef_log)
 
     phase(f"C API standalone: a C program encodes the first "
           f"{CAPI_STANDALONE_FRAMES} frames on cuda")
@@ -1373,8 +1696,8 @@ def main() -> None:
 
     phase(f"CLI: {N_FRAMES} frames 1080p LD preset 10 CRF 30 on cuda, "
           "K1 route, key-frame TF and TPL lookahead")
-    cli_launches, cli_ld_stream = cli_ld_phase(
-        np, json, torch, frames, tmp, trace_path, card, problems)
+    cli_launches, cli_cdef, cli_ld_stream = cli_ld_phase(
+        np, json, torch, frames, tmp, trace_path, card, problems, cdef_log)
     ra_frames = [make_frame(W, H, t, 8, 0.02, rng) for t in range(RA_FRAMES)]
 
     phase("plain programs at 1088x1920 on cuda")
@@ -1562,9 +1885,11 @@ def main() -> None:
     phase(f"north star: encode {NS_FRAMES} frames 1080p RA preset 6 CRF 30, "
           "5 levels, TF 1, TPL on, LR on, on cuda")
     hme_search_kernel.launches = 0
+    cdef_log.reset()
     north_star_phase(np, torch, json, Encoder, EncoderConfig, make_frame,
                      DeviceLrSearch, trace_path, card)
     ns_launches = hme_search_kernel.launches
+    ns_cdef = cdef_log.check("north star")
 
     phase(f"RA preset 6 {CMP_W}x{CMP_H}, {CMP_LEVELS} levels, {CMP_FRAMES} "
           "frames: cuda vs cpu, own decoder")
@@ -1601,8 +1926,8 @@ def main() -> None:
           f"{time.perf_counter() - t0:.1f} s, luma PSNR "
           f"{min(psnrs):.2f}..{max(psnrs):.2f} dB >= {MIN_PSNR_DB}")
     cli_dir.cleanup()
-    # a disagreement of the CLI phases fails the run after all of them
-    # have printed their numbers
+    # a disagreement of the CDEF profile or the CLI phases fails the run
+    # after all of them have printed their numbers
     if problems:
         fail("; ".join(problems))
 
@@ -1610,8 +1935,11 @@ def main() -> None:
                     if m.split(".")[0] in ("jax", "jaxlib", "svt_av1_psy_tpu"))
     if loaded:
         fail(f"modules of the JAX stack were loaded: {loaded}")
+    cdef_log.close()
     print(f"K1 launches per path: LD K1 route {k1_launches}, C API "
           f"{capi_launches}, CLI LD {cli_launches}, north star {ns_launches}")
+    print(f"CDEF launches per path: LD K1 route {cdef_launches}, C API "
+          f"{capi_cdef}, CLI LD {cli_cdef}, north star {ns_cdef}")
     print(f"smoke run: {time.perf_counter() - run_t0:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "hme_sad_scan", "route": "cuda",
@@ -1626,7 +1954,12 @@ def main() -> None:
         "launches_per_path": {"ld_k1_route": k1_launches,
                               "capi": capi_launches,
                               "cli_ld": cli_launches,
-                              "north_star": ns_launches}}]}))
+                              "north_star": ns_launches}},
+        dict(cdef_entry, launches=cdef_launches,
+             launches_per_path={"ld_k1_route": cdef_launches,
+                                "capi": capi_cdef, "cli_ld": cli_cdef,
+                                "north_star": ns_cdef},
+             launches_per_frame=per_frame)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

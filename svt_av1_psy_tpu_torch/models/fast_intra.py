@@ -20,14 +20,16 @@ device search in PyTorch on ``device`` ("cpu" or "cuda[:N]"): the intra
 decision (_decide_dispatch / _decide_finish / prefetch_decide), the
 low-delay device block of _encode_p, hme_mv_sad, and the two methods that
 build the port's IntraEncoder and DeviceLrSearch on that device
-(_encode_key_sc, _lr_apply_and_search). On CUDA the programs launch
-asynchronously in stream order; each packed result comes home through a
-HostCopy (a non_blocking copy into pinned memory plus a CUDA event), which
-the host waits for only where it reads the result. The multi-device
-decide (make_sharded_decide) takes a list of devices in place of a mesh
-and shards the plane's columns over it. Everything else is the reference's
-code; tests/test_torch_standalone.py lists what differs and guards the
-rest against drift.
+(_encode_key_sc, _lr_apply_and_search), and _cdef_native, through which
+the frame's CDEF search and apply run as a kernel of the card when the
+device is CUDA (kernels/cdef.py; the C library on the CPU). On CUDA the
+programs launch asynchronously in stream order; each packed result comes
+home through a HostCopy (a non_blocking copy into pinned memory plus a
+CUDA event), which the host waits for only where it reads the result.
+The multi-device decide (make_sharded_decide) takes a list of devices in
+place of a mesh and shards the plane's columns over it. Everything else
+is the reference's code; tests/test_torch_standalone.py lists what
+differs and guards the rest against drift.
 """
 
 from __future__ import annotations
@@ -36,10 +38,12 @@ import os
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 from svt_av1_psy_tpu_torch.bitstream.headers import (FrameParams, SequenceParams,
                                                key_frame_temporal_unit)
 from svt_av1_psy_tpu_torch.entropy.frame_context import FrameContext
+from svt_av1_psy_tpu_torch.kernels.cdef import CardCdef
 from svt_av1_psy_tpu_torch.kernels.hme import hme_search_kernel
 from svt_av1_psy_tpu_torch.models.intra_encoder import EncodedFrame, _pad_to
 from svt_av1_psy_tpu_torch.ops.quant import ac_q
@@ -206,6 +210,7 @@ class FastIntraEncoder:
         self.enable_cdef = True
         self.cdef_search_interval = 8   # re-search on keys / every Nth
         self._cdef_cache = None
+        self._cdef_stream = None        # the deferred filter's CDEF stream
         # deferred in-loop filter threads by recon-buffer id (all-intra
         # pipelining; joined before a ping-pong buffer is rewritten)
         self._pending_filters = {}
@@ -1526,7 +1531,27 @@ class FastIntraEncoder:
                            lr_dec.unit_size, lr_dec.units, bd=self.bd)
         self._lr_pending = ("dev", tok, rdmult)
 
+    def _cdef_native(self, yp, up, vp, side=False):
+        """The native layer this frame's CDEF runs through, and the
+        frame counter cdef.device: the C library (0.0) when the encoder's
+        device is the CPU; on a CUDA device (1.0) the library with its
+        cdef_run on the card (kernels/cdef.py CardCdef), holding the source
+        planes yp, up, vp in their pixel width. side: queue on a stream of
+        its own (the deferred filter thread's), made once."""
+        from svt_av1_psy_tpu_torch.utils import trace as _tr
+        if self.device.type != "cuda":
+            _tr.count("cdef.device", 0.0)
+            return self._native
+        _tr.count("cdef.device", 1.0)
+        stream = None
+        if side:
+            if self._cdef_stream is None:
+                self._cdef_stream = torch.cuda.Stream(self.device)
+            stream = self._cdef_stream
+        return CardCdef(self._native, self.device, (yp, up, vp), stream)
+
     def _search_apply_cdef(self, yp, up, vp, base_q, is_key=False):
+        native = self._cdef_native(yp, up, vp)
         yp = np.ascontiguousarray(yp, np.uint16)
         up = np.ascontiguousarray(up, np.uint16)
         vp = np.ascontiguousarray(vp, np.uint16)
@@ -1534,7 +1559,6 @@ class FastIntraEncoder:
         (ref enc_cdef.c search at cdef_bits=0 scope). The search reruns
         on key frames / every cdef_search_interval frames; in between the
         cached strengths are applied directly."""
-        native = self._native
         damping = 3 + (base_q >> 6)
         planes = (self._rec_y, self._rec_u, self._rec_v)
         srcs = (yp, up, vp)
@@ -1584,7 +1608,7 @@ class FastIntraEncoder:
         all-intra frames, or pyramid leaves with refresh == 0).
         Returns a resolve() that joins and yields the cropped recon."""
         import threading
-        native = self._native
+        native = self._cdef_native(yp, up, vp, side=True)
         ry, ru, rv = self._rec_y, self._rec_u, self._rec_v
         lf_y = self._lf_y.copy()        # the next walk rewrites the maps
         lf_uv = self._lf_uv.copy()

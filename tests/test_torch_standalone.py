@@ -66,6 +66,7 @@ PORTED = {
         "FastIntraEncoder._encode_key", "FastIntraEncoder._encode_p",
         "FastIntraEncoder._encode_key_sc",
         "FastIntraEncoder._lr_apply_and_search",
+        "FastIntraEncoder._cdef_native",
         "FastIntraEncoder._search_apply_cdef",
         "FastIntraEncoder._deferred_filter_task",
         "FastIntraEncoder._pick_and_apply_dlf"},
