@@ -442,7 +442,7 @@ def cdef_phase(np, torch, dev, card, problems: list) -> dict:
             alone = 0.0
         ms[what]["profiler"] = alone or None
     # the C as the encoder called it, and the encoder's route, per frame
-    # the 11 trials of FastIntraEncoder._search_apply_cdef's ladder
+    # the 11 trials of FastIntraEncoder._search_cdef's ladder
     ladder = ((0, 0, 0, 0), (1, 0, 0, 0), (2, 0, 0, 0), (4, 0, 0, 0),
               (7, 0, 0, 0), (12, 0, 0, 0), (4, 1, 0, 0), (4, 2, 0, 0),
               (0, 0, 1, 0), (0, 0, 2, 0), (0, 0, 4, 0))
@@ -462,12 +462,14 @@ def cdef_phase(np, torch, dev, card, problems: list) -> dict:
             native.cdef_run(cp, srcs, skip, W, H, 8, 5, q, False, sample=4)
         native.cdef_run(cp, srcs, skip, W, H, 8, 5, CDEF_QUADS[0], True)
 
+    route = cdef.CardCdef(dev)          # an encoder's, kept across frames
+
     def route_frame(search):
         cp = [p.copy() for p in planes]
-        r = cdef.CardCdef(native, dev, src8)
+        frame = route.frame(cp, src8, skip, W, H, 8, 5)
         for q in (ladder if search else ()):
-            r.cdef_run(cp, src8, skip, W, H, 8, 5, q, False, sample=4)
-        r.cdef_run(cp, src8, skip, W, H, 8, 5, CDEF_QUADS[0], True)
+            frame(q, False, sample=4)
+        frame(CDEF_QUADS[0], True)
 
     copy_ms = host_ms(lambda: [p.copy() for p in planes])
     frame_ms = {f"{k}_{'search' if s else 'apply'}":
@@ -513,7 +515,7 @@ def cdef_phase(np, torch, dev, card, problems: list) -> dict:
 
 
 class CdefLaunchLog:
-    """A spy on FastIntraEncoder's two CDEF sites, for the launches the
+    """A spy on FastIntraEncoder's filter stage, for the launches the
     card's route must make: on a CUDA encoder a frame that searches makes
     one table launch, and each apply of strengths not all 0 (on the encoder
     thread or in the deferred filter) one launch. `frames` holds (searched,
@@ -522,29 +524,19 @@ class CdefLaunchLog:
     def __init__(self):
         from svt_av1_psy_tpu_torch.models.fast_intra import FastIntraEncoder
         self.cls = FastIntraEncoder
-        self.orig = (FastIntraEncoder._search_apply_cdef,
-                     FastIntraEncoder._deferred_filter_task)
+        self.orig = FastIntraEncoder._filter_stage
         self.frames = []
         log = self
-        search, defer = self.orig
+        stage = self.orig
 
-        def spy_search(enc, *args, **kwargs):
-            searched = enc._cdef_cache is None or not (
-                enc.frame_index % max(enc.cdef_search_interval, 1))
-            st, damping = search(enc, *args, **kwargs)
-            if enc.device.type == "cuda":
-                log.frames.append((searched, tuple(st)))
-            return st, damping
+        def spy_stage(enc, *args, **kwargs):
+            searched = enc._cached(enc._cdef_cache) is None
+            out = stage(enc, *args, **kwargs)
+            if enc.device.type == "cuda" and enc.enable_cdef:
+                log.frames.append((searched, tuple(out[1])))
+            return out
 
-        def spy_defer(enc, yp, up, vp, base_q, dlf_levels, cdef_st, *args,
-                      **kwargs):
-            if enc.device.type == "cuda":
-                log.frames.append((False, tuple(cdef_st)))
-            return defer(enc, yp, up, vp, base_q, dlf_levels, cdef_st,
-                         *args, **kwargs)
-
-        FastIntraEncoder._search_apply_cdef = spy_search
-        FastIntraEncoder._deferred_filter_task = spy_defer
+        FastIntraEncoder._filter_stage = spy_stage
 
     def reset(self) -> None:
         from svt_av1_psy_tpu_torch.kernels.cdef import cdef_frame_kernel
@@ -569,8 +561,7 @@ class CdefLaunchLog:
         return got
 
     def close(self) -> None:
-        (self.cls._search_apply_cdef,
-         self.cls._deferred_filter_task) = self.orig
+        self.cls._filter_stage = self.orig
 
 
 def write_y4m(path, frames) -> None:

@@ -15,8 +15,11 @@ uv_sec). A search returns each quadruple's luma and chroma SSE as int64;
 these equal the C's float64 sums exactly (every term is an integer and
 the total stays far below 2^53). An apply returns the filtered planes.
 
-CardCdef is what the encoder calls on a CUDA device: the native module
-with its cdef_run on the card, for one frame (FastIntraEncoder._cdef_native).
+An encoder builds its CDEF routes once and keeps them for its life
+(FastIntraEncoder._cdef_routes): NativeCdef, the C library's
+native.cdef_run, on the CPU; CardCdef, the same calls on the card, on a
+CUDA device. A route's frame() binds it to one frame; on the card that is
+a CardCdefFrame, which holds the frame's uploaded mi area and search table.
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ VERY_LARGE = 0x7F7F          # what CDEF reads outside the mi area
 MAX_CANDIDATES = 32          # kMaxCand of the CUDA source
 
 # every quadruple the frame-level ladder of
-# FastIntraEncoder._search_apply_cdef can ask the SSE of: luma (p, s, 0, 0)
+# FastIntraEncoder._search_cdef can ask the SSE of: luma (p, s, 0, 0)
 # with p in the primary ladder and 0, s in the secondary one and 0; chroma
 # (0, 0, p, 0). One search launch computes all of them.
 LADDER = tuple((p, s, 0, 0) for p in (0, 1, 2, 4, 7, 12)
@@ -435,38 +438,35 @@ _TORCH_TYPES = {np.uint8: torch.uint8, np.int16: torch.int16,
                 np.int32: torch.int32}
 
 
-class CardCdef:
-    """The native module with the frame's CDEF on a CUDA device.
+class NativeCdef:
+    """The CPU's route: native.cdef_run, the C library's. frame() binds it
+    to one frame, with the sources widened to the C's uint16."""
 
-    cdef_run takes native.cdef_run's arguments and gives its results:
-    a search (apply False) returns (sse_y, sse_uv) as floats, an apply
-    filters the planes' mi area in place (and returns None). Every other
-    attribute is the native module's. One instance serves one frame: the
-    first call uploads the pre-CDEF mi area through pinned memory; the
-    first search computes the SSE of every LADDER quadruple at its sample
-    in one launch and copies the table home, and the ladder's later
-    searches read it (a quadruple outside LADDER raises KeyError); an apply
-    is one launch whose result is copied straight into the planes' mi
-    area. The sources come with the instance, in their pixel width (uint8
-    at 8 bit); the srcs handed to cdef_run must have their shapes. Work is
-    queued on `stream` (None: the current stream), and each call waits
-    for its own copy home only. The device span cdef_program runs from a
-    call's upload or launch to the start of its copy home."""
+    def __init__(self, native):
+        self.native = native
+
+    def frame(self, planes, srcs, skip, w, h, bd, damping):
+        """native.cdef_run(planes, srcs, skip, w, h, bd, damping, ...),
+        called with the strengths, apply and sample."""
+        srcs = [np.ascontiguousarray(s, np.uint16) for s in srcs]
+        return functools.partial(self.native.cdef_run, planes, srcs, skip,
+                                 w, h, bd, damping)
+
+
+class CardCdef:
+    """The route on a CUDA device, kept for an encoder's life: the device,
+    and the stream its work is queued on (None: the current stream).
+    frame() binds it to one frame as a CardCdefFrame, which holds all of
+    that frame's state; the route holds none, so threads may share it."""
 
     kernel = staticmethod(cdef_frame_kernel)
 
-    def __init__(self, native, device: torch.device, srcs, stream=None):
-        self._native = native
+    def __init__(self, device: torch.device, stream=None):
         self.device = torch.device(device)
         self.stream = stream
-        self._srcs = [np.ascontiguousarray(s) if s.dtype in (np.uint8,
-                                                             np.uint16)
-                      else np.ascontiguousarray(s, np.uint16) for s in srcs]
-        self._planes = None         # the uploaded pre-CDEF mi area
-        self._tables = {}           # search key -> {quadruple: (y, uv)}
 
-    def __getattr__(self, name):
-        return getattr(self._native, name)
+    def frame(self, planes, srcs, skip, w, h, bd, damping):
+        return CardCdefFrame(self, planes, srcs, skip, w, h, bd, damping)
 
     def _queue(self):
         return torch.cuda.stream(self.stream) if self.stream is not None \
@@ -492,42 +492,67 @@ class CardCdef:
         ev.synchronize()
         return [hst.numpy() for hst in hosts]
 
-    def _area(self, planes, skip):
-        if self._planes is None:
-            gh, gw = skip.shape[0] * 4, skip.shape[1] * 4
-            self._planes = [self._upload(p[:gh >> s, :gw >> s])
-                            for p, s in zip(planes, (0, 1, 1))]
-        return self._planes
 
-    def cdef_run(self, planes, srcs, skip, w, h, bd, damping, strengths,
-                 apply, sample=1, n_threads=4):
+class CardCdefFrame:
+    """native.cdef_run bound to one frame's planes, sources, skip map,
+    display size, bit depth and damping, run on the card through `route`.
+
+    Called with the strengths, apply and sample, it gives cdef_run's
+    results: a search returns (sse_y, sse_uv) as floats, an apply filters
+    the planes' mi area in place (and returns None). The first call
+    uploads the pre-CDEF mi area through pinned memory; the first search
+    at a sample computes the SSE of every LADDER quadruple in one launch
+    and copies the table home, and later searches read it (a quadruple
+    outside LADDER raises KeyError); an apply is one launch whose result is
+    copied straight into the planes' mi area, after which nothing of the
+    old planes is held. Sources go up in their pixel width (uint8 at 8
+    bit, 16-bit ones as int16). Each call waits for its own copy home
+    only. The device span cdef_program runs from a call's upload or launch
+    to the start of its copy home."""
+
+    def __init__(self, route, planes, srcs, skip, w, h, bd, damping):
+        self.route, self.planes, self.skip = route, planes, skip
+        self.srcs = [s if s.dtype in (np.uint8, np.uint16)
+                     else s.astype(np.uint16) for s in srcs]
+        self.geometry = (bd, damping, w, h)
+        self._drop()
+
+    def _drop(self) -> None:
+        self._area = None           # the uploaded pre-CDEF mi area
+        self._tables = {}           # (sample, n_threads) -> {quad: (y, uv)}
+
+    def _mi_area(self):
+        if self._area is None:
+            gh, gw = self.skip.shape[0] * 4, self.skip.shape[1] * 4
+            self._area = [self.route._upload(p[:gh >> s, :gw >> s])
+                          for p, s in zip(self.planes, (0, 1, 1))]
+        return self._area
+
+    def __call__(self, strengths, apply, sample=1, n_threads=4):
         from svt_av1_psy_tpu_torch.utils import trace as _tr
-        with self._queue():
-            span = None
+        route = self.route
+        with route._queue():
             if apply:
-                span = _tr.device_begin("cdef_program", self.device)
-                out = self.kernel(
-                    self._area(planes, skip), None,
-                    self._upload(cdef_block_list(skip, 1, n_threads)),
-                    [strengths], bd, damping, w, h, apply=True)
+                span = _tr.device_begin("cdef_program", route.device)
+                out = route.kernel(
+                    self._mi_area(), None,
+                    route._upload(cdef_block_list(self.skip, 1, n_threads)),
+                    [strengths], *self.geometry, apply=True)
                 _tr.device_end(span)
-                for p, a in zip(planes, self._home(out)):
+                for p, a in zip(self.planes, route._home(out)):
                     p[:a.shape[0], :a.shape[1]] = a.view(np.uint16)
-                self._planes = None          # the planes have moved on
+                self._drop()                 # the planes have moved on
                 return None
-            if [s.shape for s in srcs] != [s.shape for s in self._srcs]:
-                raise ValueError("CardCdef: sources of another shape than "
-                                 "the frame's")
-            key = (w, h, bd, damping, sample, n_threads)
+            key = (sample, n_threads)
             if key not in self._tables:
-                span = _tr.device_begin("cdef_program", self.device)
-                sse = self.kernel(
-                    self._area(planes, skip),
-                    [self._upload(s) for s in self._srcs],
-                    self._upload(cdef_block_list(skip, sample, n_threads)),
-                    LADDER, bd, damping, w, h)
+                span = _tr.device_begin("cdef_program", route.device)
+                sse = route.kernel(
+                    self._mi_area(), [route._upload(s) for s in self.srcs],
+                    route._upload(cdef_block_list(self.skip, sample,
+                                                  n_threads)),
+                    LADDER, *self.geometry)
                 _tr.device_end(span)
-                table, = self._home([sse])
+                table, = route._home([sse])
                 self._tables[key] = {q: (float(a), float(b))
                                      for q, (a, b) in zip(LADDER, table)}
             return self._tables[key][tuple(int(v) for v in strengths)]

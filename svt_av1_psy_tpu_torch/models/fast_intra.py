@@ -18,11 +18,11 @@ funnel (models/intra_encoder.py) remains the quality path.
 The port's copy of svt_av1_psy_tpu/models/fast_intra.py, with its
 device search in PyTorch on ``device`` ("cpu" or "cuda[:N]"): the intra
 decision (_decide_dispatch / _decide_finish / prefetch_decide), the
-low-delay device block of _encode_p, hme_mv_sad, and the two methods that
-build the port's IntraEncoder and DeviceLrSearch on that device
-(_encode_key_sc, _lr_apply_and_search), and _cdef_native, through which
-the frame's CDEF search and apply run as a kernel of the card when the
-device is CUDA (kernels/cdef.py; the C library on the CPU). On CUDA the
+low-delay device block of _encode_p, hme_mv_sad, and _encode_key_sc, which
+builds the port's IntraEncoder on that device. The walks' post-walk tail
+(the tile runner, the tile-group assembly and the in-loop filter stage,
+with CDEF on the card and the LR search on the device) is the port's own,
+models/frame_tail.py FrameTail, a base of FastIntraEncoder. On CUDA the
 programs launch asynchronously in stream order; each packed result comes
 home through a HostCopy (a non_blocking copy into pinned memory plus a
 CUDA event), which the host waits for only where it reads the result.
@@ -38,13 +38,12 @@ import os
 from dataclasses import dataclass
 
 import numpy as np
-import torch
 
 from svt_av1_psy_tpu_torch.bitstream.headers import (FrameParams, SequenceParams,
                                                key_frame_temporal_unit)
 from svt_av1_psy_tpu_torch.entropy.frame_context import FrameContext
-from svt_av1_psy_tpu_torch.kernels.cdef import CardCdef
 from svt_av1_psy_tpu_torch.kernels.hme import hme_search_kernel
+from svt_av1_psy_tpu_torch.models.frame_tail import FrameTail
 from svt_av1_psy_tpu_torch.models.intra_encoder import EncodedFrame, _pad_to
 from svt_av1_psy_tpu_torch.ops.quant import ac_q
 from svt_av1_psy_tpu_torch.ops.torch_backend import (hme2_unpack,
@@ -100,7 +99,7 @@ def hme_mv_sad(src_p, ref_p, device):
     return hme2_unpack(out.numpy(), ph // 16, pw // 16)
 
 
-class FastIntraEncoder:
+class FastIntraEncoder(FrameTail):
     """Device-search + C-commit all-intra encoder (KEY frames only)."""
 
     def __init__(self, width: int, height: int, qindex: int, bd: int = 8,
@@ -210,7 +209,9 @@ class FastIntraEncoder:
         self.enable_cdef = True
         self.cdef_search_interval = 8   # re-search on keys / every Nth
         self._cdef_cache = None
-        self._cdef_stream = None        # the deferred filter's CDEF stream
+        # the frame's CDEF, on the encoder thread and on the deferred
+        # filter thread, for the encoder's life
+        self._cdef_route, self._cdef_side = self._cdef_routes()
         # deferred in-loop filter threads by recon-buffer id (all-intra
         # pipelining; joined before a ping-pong buffer is rewritten)
         self._pending_filters = {}
@@ -639,30 +640,11 @@ class FastIntraEncoder:
                                  n_cands=self.n_cands)
             return ec.done()
 
-        import os as _os
         with _tstage("intra_commit_walk"):
             walk = _tr.walk_begin()
-            if n_tiles_total == 1 or _os.environ.get("SVT_TILE_SEQ"):
-                tile_bytes = [encode_tile(i) for i in range(n_tiles_total)]
-            else:
-                from concurrent.futures import ThreadPoolExecutor
-                with ThreadPoolExecutor(max_workers=n_tiles_total) as tp:
-                    tile_bytes = list(tp.map(encode_tile,
-                                             range(n_tiles_total)))
+            tile_bytes = self._run_tiles(encode_tile)
             _tr.walk_end(walk)
-
-        # tile group assembly (spec 5.11.1): OBU_FRAME requires
-        # tile_start_and_end_present_flag == 0 (one aligned zero bit),
-        # then per-tile size fields for all but the last tile
-        if n_tiles_total == 1:
-            tg = tile_bytes[0]
-        else:
-            parts = [b"\x00"]
-            for tb in tile_bytes[:-1]:
-                parts.append((len(tb) - 1).to_bytes(4, "little"))
-                parts.append(tb)
-            parts.append(tile_bytes[-1])
-            tg = b"".join(parts)
+        tg = self._tile_group(tile_bytes)
 
         # frame-end context save (refresh slot 0, context_update_tile_id=0)
         self._fc_saved = tile_fcs[0]
@@ -682,43 +664,12 @@ class FastIntraEncoder:
                     np.asarray(y), np.asarray(u), np.asarray(v), self.bd)
             self.seq.film_grain_params_present = self._fg_params is not None
 
-        # all-intra pipelining (SURVEY §2.2 P1): when the recon is never a
-        # reference, the DLF/CDEF APPLY (not the search — the frame header
-        # signals the searched levels) moves to a background thread that
-        # overlaps the next frame's walk; recon access joins it
-        # (EncodedFrame lazy resolve)
-        cached = self._dlf_cache is not None and \
-            self._cdef_cache is not None and \
-            (self.frame_index % max(self.cdef_search_interval, 1)) != 0
-        defer = (self.gop_size == 1 and self.hierarchical_levels == 0
-                 and not getattr(self, "ra_mode", False)
-                 and not self.enable_lr and self.enable_dlf
-                 and self.enable_cdef and cached
-                 and not self.superres_denom)
-        deferred_task = None
-        if defer:
-            ly, lu, lv_ = self._dlf_cache
-            lf = (ly, ly, lu, lv_)
-            cdef_st = self._cdef_cache
-            cdef_damp = 3 + (base_q >> 6)
-            deferred_task = self._deferred_filter_task(
-                yp, up, vp, base_q, (ly, lu, lv_), cdef_st, cdef_damp)
-        else:
-            lf = (0, 0, 0, 0)
-            if self.enable_dlf:
-                lf = self._pick_and_apply_dlf(yp, up, vp, base_q)
-            pre_cdef = None
-            if self.enable_lr:
-                pre_cdef = (self._rec_y.copy(), self._rec_u.copy(),
-                            self._rec_v.copy())
-            cdef_st, cdef_damp = ((0, 0, 0, 0), 3)
-            if self.enable_cdef:
-                cdef_st, cdef_damp = self._search_apply_cdef(yp, up, vp,
-                                                             base_q,
-                                                             is_key=True)
-            if self.enable_lr:
-                self._lr_apply_and_search(yp, up, vp, base_q, lr_dec,
-                                          pre_cdef)
+        # all-intra pipelining (SURVEY §2.2 P1): a frame that is never a
+        # reference may defer its filters' applies
+        lf, cdef_st, cdef_damp, deferred_task = self._filter_stage(
+            yp, up, vp, base_q, lr_dec,
+            may_defer=self.gop_size == 1 and self.hierarchical_levels == 0
+            and not getattr(self, "ra_mode", False) and not self.enable_lr)
         if self.hierarchical_levels > 0 or getattr(self, "ra_mode", False):
             # a shown KEY frame refreshes every DPB slot
             rec = (self._rec_y.copy(), self._rec_u.copy(),
@@ -1189,20 +1140,13 @@ class FastIntraEncoder:
                 grid_exp = (eng.grid_read(), (r0, r1, c0, c1))
             return ec.done(), grid_exp
 
-        import os as _os
         # a deferred leaf filter from two frames ago may still be
         # running on this ping-pong buffer
         with _tr.span("filter_join"):
             self._join_pending_filter(self._rec_y)
         with _tstage("inter_commit_walk"):
             walk = _tr.walk_begin()
-            if n_tiles_total == 1 or _os.environ.get("SVT_TILE_SEQ"):
-                tile_out = [encode_tile(i) for i in range(n_tiles_total)]
-            else:
-                from concurrent.futures import ThreadPoolExecutor
-                with ThreadPoolExecutor(max_workers=n_tiles_total) as tp:
-                    tile_out = list(tp.map(encode_tile,
-                                           range(n_tiles_total)))
+            tile_out = self._run_tiles(encode_tile)
             _tr.walk_end(walk)
         tile_bytes = [t[0] for t in tile_out]
 
@@ -1224,54 +1168,11 @@ class FastIntraEncoder:
                                        cur_hint_mf, hints7_mf, hints7_mf,
                                        7, is_intra=False)
 
-        if self.n_tiles == 1:
-            tg = tile_bytes[0]
-        else:
-            parts = [b"\x00"]
-            for tb in tile_bytes[:-1]:
-                parts.append((len(tb) - 1).to_bytes(4, "little"))
-                parts.append(tb)
-            parts.append(tile_bytes[-1])
-            tg = b"".join(parts)
-
-        # in-loop filter stage. A never-referenced frame whose DLF/CDEF
-        # parameters come from the frame-level caches moves the APPLY
-        # (not the search — the header signals the cached levels) to a
-        # background thread that overlaps the next frame's walk — the
-        # P1-pipeline deferral the all-intra path uses, generalized to
-        # the pyramid's leaf frames (SURVEY §2.2 P1)
-        filters_cached = (
-            self._dlf_cache is not None and self._cdef_cache is not None
-            and (self.frame_index % max(self.cdef_search_interval, 1)))
-        defer = (never_referenced and filters_cached and self.enable_dlf
-                 and self.enable_cdef and not self.superres_denom)
-        deferred_task = None
-        if defer:
-            ly, lu, lv_ = self._dlf_cache
-            lf = (ly, ly, lu, lv_)
-            cdef_st = self._cdef_cache
-            cdef_damp = 3 + (base_q >> 6)
-            deferred_task = self._deferred_filter_task(
-                yp, up, vp, base_q, (ly, lu, lv_), cdef_st, cdef_damp,
-                lr_dec=lr_dec if self.enable_lr else None)
-        else:
-            lf = (0, 0, 0, 0)
-            if self.enable_dlf:
-                with _tstage("dlf"):
-                    lf = self._pick_and_apply_dlf(yp, up, vp, base_q)
-            pre_cdef = None
-            if self.enable_lr:
-                pre_cdef = (self._rec_y.copy(), self._rec_u.copy(),
-                            self._rec_v.copy())
-            cdef_st, cdef_damp = ((0, 0, 0, 0), 3)
-            if self.enable_cdef:
-                with _tstage("cdef"):
-                    cdef_st, cdef_damp = self._search_apply_cdef(
-                        yp, up, vp, base_q)
-            if self.enable_lr:
-                with _tstage("loop_restoration"):
-                    self._lr_apply_and_search(yp, up, vp, base_q, lr_dec,
-                                              pre_cdef)
+        tg = self._tile_group(tile_bytes)
+        # the pyramid's leaves defer their filters' applies as all-intra
+        # frames do (SURVEY §2.2 P1)
+        lf, cdef_st, cdef_damp, deferred_task = self._filter_stage(
+            yp, up, vp, base_q, lr_dec, may_defer=never_referenced)
 
         self._fc_saved = tile_fcs[0]
         ref_idx = (0,) * 7
@@ -1506,170 +1407,6 @@ class FastIntraEncoder:
             self._lr_pending = p
         return p
 
-    def _lr_apply_and_search(self, yp, up, vp, base_q, lr_dec, pre_cdef):
-        """Apply this frame's signalled LR params (normative, in place on
-        the recon) and dispatch the device search for the next frame's
-        params on the pre-LR post-CDEF recon (the cross-frame cache;
-        ref rest_process.c / restoration_pick.c:1471 — the solve +
-        filtered-SSE math runs on the chip, models/lr_search.py
-        DeviceLrSearch)."""
-        from svt_av1_psy_tpu_torch.models.lr_search import DeviceLrSearch
-        from svt_av1_psy_tpu_torch.ops.quant import ac_q
-        from svt_av1_psy_tpu_torch.ops.restoration import apply_lr_frame
-        H, W = self.height, self.width
-        cw, ch = (W + 1) // 2, (H + 1) // 2
-        dims = [(W, H), (cw, ch), (cw, ch)]
-        planes = [self._rec_y, self._rec_u, self._rec_v]
-        qstep = ac_q(base_q, self.bd) / 8.0
-        rdmult = 0.12 * qstep * qstep * getattr(self, "_cur_rd_scale", 1.0)
-        if self._lr_dev is None:
-            self._lr_dev = DeviceLrSearch(dims, self.bd,
-                                          device=self.device)
-        tok = self._lr_dev.dispatch((yp, up, vp), planes)
-        if lr_dec is not None:
-            apply_lr_frame(planes, list(pre_cdef), dims, lr_dec.lr_type,
-                           lr_dec.unit_size, lr_dec.units, bd=self.bd)
-        self._lr_pending = ("dev", tok, rdmult)
-
-    def _cdef_native(self, yp, up, vp, side=False):
-        """The native layer this frame's CDEF runs through, and the
-        frame counter cdef.device: the C library (0.0) when the encoder's
-        device is the CPU; on a CUDA device (1.0) the library with its
-        cdef_run on the card (kernels/cdef.py CardCdef), holding the source
-        planes yp, up, vp in their pixel width. side: queue on a stream of
-        its own (the deferred filter thread's), made once."""
-        from svt_av1_psy_tpu_torch.utils import trace as _tr
-        if self.device.type != "cuda":
-            _tr.count("cdef.device", 0.0)
-            return self._native
-        _tr.count("cdef.device", 1.0)
-        stream = None
-        if side:
-            if self._cdef_stream is None:
-                self._cdef_stream = torch.cuda.Stream(self.device)
-            stream = self._cdef_stream
-        return CardCdef(self._native, self.device, (yp, up, vp), stream)
-
-    def _search_apply_cdef(self, yp, up, vp, base_q, is_key=False):
-        native = self._cdef_native(yp, up, vp)
-        yp = np.ascontiguousarray(yp, np.uint16)
-        up = np.ascontiguousarray(up, np.uint16)
-        vp = np.ascontiguousarray(vp, np.uint16)
-        """Frame-level CDEF strength ladder (subsampled SSE) + apply
-        (ref enc_cdef.c search at cdef_bits=0 scope). The search reruns
-        on key frames / every cdef_search_interval frames; in between the
-        cached strengths are applied directly."""
-        damping = 3 + (base_q >> 6)
-        planes = (self._rec_y, self._rec_u, self._rec_v)
-        srcs = (yp, up, vp)
-        if self._cdef_cache is not None and \
-                (self.frame_index % max(self.cdef_search_interval, 1)):
-            st = self._cdef_cache
-            if any(st):
-                native.cdef_run(planes, srcs, self._skip_map, self.width,
-                                self.height, self.bd, damping, st,
-                                apply=True)
-            return st, damping
-
-        def sse(st, sample):
-            return native.cdef_run(planes, srcs, self._skip_map,
-                                   self.width, self.height, self.bd,
-                                   damping, st, apply=False, sample=sample)
-
-        from svt_av1_psy_tpu_torch.utils import trace as _tr
-        with _tr.span("cdef_search"):
-            base_y, base_c = sse((0, 0, 0, 0), 4)
-            best_y, cost_y = 0, base_y
-            for pri in (1, 2, 4, 7, 12):
-                cy, _ = sse((pri, 0, 0, 0), 4)
-                if cy < cost_y:
-                    best_y, cost_y = pri, cy
-            best_ys = 0
-            for sec in (1, 2):
-                cy, _ = sse((best_y, sec, 0, 0), 4)
-                if cy < cost_y:
-                    best_ys, cost_y = sec, cy
-            best_c, cost_c = 0, base_c
-            for pri in (1, 2, 4):
-                _, cc2 = sse((0, 0, pri, 0), 4)
-                if cc2 < cost_c:
-                    best_c, cost_c = pri, cc2
-        st = (best_y, best_ys, best_c, 0)
-        self._cdef_cache = st
-        if any(st):
-            native.cdef_run(planes, srcs, self._skip_map, self.width,
-                            self.height, self.bd, damping, st, apply=True)
-        return st, damping
-
-    def _deferred_filter_task(self, yp, up, vp, base_q, dlf_levels,
-                              cdef_st, damping, lr_dec=None):
-        """Spawn the DLF/CDEF(/LR) apply + recon crop on a background
-        thread over THIS frame's recon buffers (never a reference:
-        all-intra frames, or pyramid leaves with refresh == 0).
-        Returns a resolve() that joins and yields the cropped recon."""
-        import threading
-        native = self._cdef_native(yp, up, vp, side=True)
-        ry, ru, rv = self._rec_y, self._rec_u, self._rec_v
-        lf_y = self._lf_y.copy()        # the next walk rewrites the maps
-        lf_uv = self._lf_uv.copy()
-        skip = self._skip_map.copy()
-        yp = np.ascontiguousarray(yp, np.uint16)
-        up = np.ascontiguousarray(up, np.uint16)
-        vp = np.ascontiguousarray(vp, np.uint16)
-        rows, cols = self.mi_rows, self.mi_cols
-        crows, ccols = (rows + 1) // 2, (cols + 1) // 2
-        H, W = self.height, self.width
-        cH, cW = (H + 1) // 2, (W + 1) // 2
-        bd = self.bd
-        out = {}
-        from svt_av1_psy_tpu_torch.utils import trace as _tr
-        token = _tr.handoff()
-
-        def task():
-            with _tr.span("leaf_filter", token):
-                ly, lu, lv_ = dlf_levels
-                if ly:
-                    native.dlf_apply(ry, lf_y, True, ly, ly, 0, bd, rows,
-                                     cols, W, H)
-                if lu:
-                    native.dlf_apply(ru, lf_uv, False, lu, lu, 0, bd,
-                                     crows, ccols, cW, cH)
-                if lv_:
-                    native.dlf_apply(rv, lf_uv, False, lv_, lv_, 0, bd,
-                                     crows, ccols, cW, cH)
-                pre_cdef = None
-                if lr_dec is not None:
-                    pre_cdef = (ry.copy(), ru.copy(), rv.copy())
-                if any(cdef_st):
-                    native.cdef_run((ry, ru, rv), (yp, up, vp), skip, W, H,
-                                    bd, damping, cdef_st, apply=True)
-                if lr_dec is not None:
-                    # signalled LR params apply normatively; the device
-                    # search for the NEXT frame's params is NOT re-dispatched
-                    # here — a leaf keeps the pending decision live for its
-                    # successor (the cross-frame parameter cache tolerates
-                    # one extra frame of staleness)
-                    from svt_av1_psy_tpu_torch.ops.restoration import (
-                        apply_lr_frame)
-                    cw2, ch2 = (W + 1) // 2, (H + 1) // 2
-                    dims = [(W, H), (cw2, ch2), (cw2, ch2)]
-                    apply_lr_frame([ry, ru, rv], list(pre_cdef), dims,
-                                   lr_dec.lr_type, lr_dec.unit_size,
-                                   lr_dec.units, bd=bd)
-                dt = np.uint8 if bd == 8 else np.uint16
-                out["rec"] = (ry[:H, :W].astype(dt), ru[:cH, :cW].astype(dt),
-                              rv[:cH, :cW].astype(dt))
-
-        th = threading.Thread(target=task, daemon=True)
-        th.start()
-        self._pending_filters[id(ry)] = th
-
-        def resolve():
-            th.join()
-            return out["rec"]
-
-        return resolve
-
     def _join_pending_filter(self, buf) -> None:
         """Join the deferred filter still running on `buf` (called before
         the walk reuses a ping-pong buffer, and before any state copy)."""
@@ -1686,74 +1423,3 @@ class FastIntraEncoder:
         for th in list(self._pending_filters.values()):
             th.join()
         self._pending_filters.clear()
-
-    def _pick_and_apply_dlf(self, yp, up, vp, base_q):
-        yp = np.ascontiguousarray(yp, np.uint16)
-        up = np.ascontiguousarray(up, np.uint16)
-        vp = np.ascontiguousarray(vp, np.uint16)
-        native = self._native
-        if self._dlf_cache is not None and \
-                (self.frame_index % max(self.cdef_search_interval, 1)):
-            ly, lu, lv_ = self._dlf_cache
-            rows, cols = self.mi_rows, self.mi_cols
-            crows, ccols = (rows + 1) // 2, (cols + 1) // 2
-            if ly:
-                native.dlf_apply(self._rec_y, self._lf_y, True, ly, ly, 0,
-                                 self.bd, rows, cols, self.width,
-                                 self.height)
-            if lu:
-                native.dlf_apply(self._rec_u, self._lf_uv, False, lu, lu,
-                                 0, self.bd, crows, ccols,
-                                 (self.width + 1) // 2,
-                                 (self.height + 1) // 2)
-            if lv_:
-                native.dlf_apply(self._rec_v, self._lf_uv, False, lv_,
-                                 lv_, 0, self.bd, crows, ccols,
-                                 (self.width + 1) // 2,
-                                 (self.height + 1) // 2)
-            return (ly, ly, lu, lv_)
-        """Ladder level search around a q-derived guess, then apply
-        (ref av1_pick_filter_level's bisection; dlf_process.c kernel)."""
-        native = self._native
-        rows, cols = self.mi_rows, self.mi_cols
-        crows, ccols = (rows + 1) // 2, (cols + 1) // 2
-        H, W = self.height, self.width
-        guess = max(0, base_q // 12)
-        lad_y = sorted({0, max(0, guess // 2), guess, guess + guess // 2,
-                        min(63, 2 * guess)})
-        lad_c = sorted({0, guess // 2, guess})
-
-        def pick(plane, src, txdim, is_luma, ladder, r, c2, w, h):
-            best, best_sse = 0, None
-            for lv in ladder:
-                sse = native.dlf_try_level(plane, src, self._lf_scratch,
-                                           txdim, is_luma, lv, 0, self.bd,
-                                           r, c2, w, h)
-                if best_sse is None or sse < best_sse:
-                    best, best_sse = lv, sse
-            return best
-
-        from svt_av1_psy_tpu_torch.utils import trace as _tr
-        with _tr.span("dlf_search"):
-            ly = pick(self._rec_y, yp, self._lf_y, True, lad_y, rows, cols,
-                      W, H)
-            lu = pick(self._rec_u, up, self._lf_uv, False, lad_c, crows,
-                      ccols, (W + 1) // 2, (H + 1) // 2)
-            lv_ = pick(self._rec_v, vp, self._lf_uv, False, lad_c, crows,
-                       ccols, (W + 1) // 2, (H + 1) // 2)
-        if ly == 0:
-            # chroma levels only coded when a luma level is nonzero
-            lu = lv_ = 0
-        self._dlf_cache = (ly, lu, lv_)
-        if ly:
-            native.dlf_apply(self._rec_y, self._lf_y, True, ly, ly, 0,
-                             self.bd, rows, cols, W, H)
-        if lu:
-            native.dlf_apply(self._rec_u, self._lf_uv, False, lu, lu, 0,
-                             self.bd, crows, ccols, (W + 1) // 2,
-                             (H + 1) // 2)
-        if lv_:
-            native.dlf_apply(self._rec_v, self._lf_uv, False, lv_, lv_, 0,
-                             self.bd, crows, ccols, (W + 1) // 2,
-                             (H + 1) // 2)
-        return (ly, ly, lu, lv_)

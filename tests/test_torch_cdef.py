@@ -8,8 +8,11 @@ against the blocks the C writes; the ladder run from one table against
 the sequential ladder; whole encodes (low delay, random access, all-intra
 with the deferred filter) through the card's route run on the CPU
 (CpuCardCdef, a test fake: CardCdef with the plain version in the
-kernel's place), byte-equal to the C's; and a CPU encode never launching
-the kernel.
+kernel's place, built as each encoder's routes), byte-equal to the C's,
+also with two deferred filter tasks interleaved on the filter threads'
+route; the routes kept across an encoder's frames, the filter threads'
+their own, each frame's state in a frame object of its own; and a CPU
+encode never launching the kernel.
 Tests marked `cuda` hold the kernel itself to both on the card:
 ``python -m pytest --noconftest -m cuda tests/test_torch_cdef.py``.
 """
@@ -17,6 +20,7 @@ Tests marked `cuda` hold the kernel itself to both on the card:
 import ctypes
 import pathlib
 import sys
+import threading
 
 import numpy as np
 import pytest
@@ -197,18 +201,21 @@ class CpuCardCdef(cdef.CardCdef):
 
 
 def _on_the_route(monkeypatch):
-    """Every FastIntraEncoder's CDEF through the card's route on the CPU."""
-    def route(self, yp, up, vp, side=False):
-        return CpuCardCdef(self._native, torch.device("cpu"), (yp, up, vp))
-    monkeypatch.setattr(FastIntraEncoder, "_cdef_native", route)
+    """Every FastIntraEncoder's CDEF through the card's route on the CPU:
+    two CpuCardCdef per encoder, the encoder thread's and the filter
+    thread's, as _cdef_routes builds two CardCdef on a CUDA device."""
+    monkeypatch.setattr(
+        FastIntraEncoder, "_cdef_routes",
+        lambda self: (CpuCardCdef(self.device), CpuCardCdef(self.device)))
 
 
 @pytest.mark.parametrize("seed,noise,bd", [(0, 2.0, 8), (1, 12.0, 8),
                                            (2, 40.0, 8), (3, 6.0, 10)])
 def test_ladder_from_the_table_picks_as_the_sequential_ladder(
         monkeypatch, seed, noise, bd):
-    """_search_apply_cdef with every SSE read from one table gives the
-    sequential C ladder's strengths and damping, and the same planes."""
+    """The filter stage's CDEF search and apply with every SSE read from
+    one table gives the sequential C ladder's strengths and damping, and
+    the same planes."""
     w, h = 176, 144
     rng = np.random.default_rng(seed)
     planes, srcs, skip = _frame(w, h, bd, "random", seed)
@@ -220,14 +227,17 @@ def test_ladder_from_the_table_picks_as_the_sequential_ladder(
         if routed:
             _on_the_route(monkeypatch)
         enc = _encoder(w, h, bd)
+        enc.enable_dlf = False
         for buf, p, k in zip((enc._rec_y, enc._rec_u, enc._rec_v), noisy,
                              (0, 1, 1)):
             buf[:enc.ah >> k, :enc.aw >> k] = p[:enc.ah >> k, :enc.aw >> k]
         enc._skip_map[...] = skip
         yp, up, vp = (s[:enc.pah >> k, :enc.paw >> k]
                       for s, k in zip(srcs, (0, 1, 1)))
-        st = enc._search_apply_cdef(yp, up, vp, base_q=120 + 40 * seed)
-        got.append((st, enc._rec_y.copy(), enc._rec_u.copy(),
+        _, st, damping, resolve = enc._filter_stage(
+            yp, up, vp, 120 + 40 * seed, None, may_defer=False)
+        assert resolve is None and enc._cdef_cache == st
+        got.append(((st, damping), enc._rec_y.copy(), enc._rec_u.copy(),
                     enc._rec_v.copy()))
     (st_c, *planes_c), (st_t, *planes_t) = got
     assert st_t == st_c
@@ -296,10 +306,87 @@ def test_encode_through_the_route_equals_the_c(monkeypatch, path):
     _same(_run(make, 176, 144, n), want)
 
 
+def test_the_routes_are_kept_across_frames(monkeypatch):
+    """An encoder builds its routes once: every CDEF call of its frames on
+    the encoder thread goes through one route object, and every call of
+    the deferred filter thread through the other; each frame binds the
+    route to its planes in a frame object of its own."""
+    calls = []
+    run = cdef.CardCdefFrame.__call__
+    encoder_thread = threading.current_thread()
+
+    def logged(self, *args, **kwargs):
+        calls.append((threading.current_thread() is encoder_thread,
+                      self.route, self, kwargs["apply"]))
+        return run(self, *args, **kwargs)
+
+    _on_the_route(monkeypatch)
+    monkeypatch.setattr(cdef.CardCdefFrame, "__call__", logged)
+    rng = np.random.default_rng(7)
+    enc = _ai(176, 144, "cpu")
+    routes = (enc._enc._cdef_route, enc._enc._cdef_side)
+    try:
+        for t in range(10):
+            enc.encode(*make_frame(176, 144, t, 8, 0.02, rng)).recon_y
+    finally:
+        enc.close()
+    assert routes == (enc._enc._cdef_route, enc._enc._cdef_side)
+    assert routes[0] is not routes[1]
+    main = {id(r) for on_main, r, _, _ in calls if on_main}
+    side = {id(r) for on_main, r, _, _ in calls if not on_main}
+    assert main == {id(routes[0])} and side == {id(routes[1])}
+    # frames 0 and 8 search and apply here; the other 8 apply there
+    assert sum(1 for on_main, _, _, apply in calls if on_main and apply) == 2
+    assert sum(1 for on_main, _, _, _ in calls if not on_main) == 8
+    assert len({id(f) for _, _, f, _ in calls}) == 10
+
+
+def test_deferred_filters_at_once_equal_the_c(monkeypatch):
+    """Two deferred filter tasks in flight at once on the filter threads'
+    route, interleaved at its worst: the first task's CDEF apply stops
+    before it uploads its mi area until the second one's is uploaded and
+    launched, and the second's launch waits until the first has copied its
+    result home. Every recon stays the C's."""
+    make, n = ENCODES["allintra"]
+    want = _run(make, 176, 144, n)
+    _on_the_route(monkeypatch)
+    encoder_thread = threading.current_thread()
+    first, launched, home = [], threading.Event(), threading.Event()
+    queue, plain, copy_home = (CpuCardCdef._queue, CpuCardCdef.kernel,
+                               CpuCardCdef._home)
+
+    def held_queue(self):
+        if threading.current_thread() is not encoder_thread and not first:
+            first.append(threading.current_thread())
+            launched.wait(30)
+        return queue(self)
+
+    def held_kernel(*args, **kwargs):
+        me = threading.current_thread()
+        if me is not encoder_thread and first and me is not first[0] and \
+                not launched.is_set():
+            launched.set()
+            home.wait(30)
+        return plain(*args, **kwargs)
+
+    def held_home(self, tensors):
+        out = copy_home(self, tensors)
+        if first and threading.current_thread() is first[0]:
+            home.set()
+        return out
+
+    monkeypatch.setattr(CpuCardCdef, "_queue", held_queue)
+    monkeypatch.setattr(CpuCardCdef, "kernel", staticmethod(held_kernel))
+    monkeypatch.setattr(CpuCardCdef, "_home", held_home)
+    got = _run(make, 176, 144, n)
+    assert launched.is_set() and home.is_set()
+    _same(got, want)
+
+
 def test_cpu_encode_runs_the_c_and_never_the_kernel(monkeypatch):
-    """On the CPU the frame's CDEF is native.cdef_run's: the route is the
-    native module itself, native.cdef_run runs, and the kernel never
-    launches."""
+    """On the CPU the frame's CDEF is native.cdef_run's: both routes are
+    one NativeCdef over the native module, native.cdef_run runs, and the
+    kernel never launches."""
     calls = []
     c_run = native.cdef_run
 
@@ -310,7 +397,8 @@ def test_cpu_encode_runs_the_c_and_never_the_kernel(monkeypatch):
     monkeypatch.setattr(native, "cdef_run", counted)
     cdef.cdef_frame_kernel.launches = 0
     enc = _encoder(176, 144)
-    assert enc._cdef_native(None, None, None) is native
+    assert isinstance(enc._cdef_route, cdef.NativeCdef) and \
+        enc._cdef_route.native is native and enc._cdef_side is enc._cdef_route
     _run(_ld, 176, 144, 3)
     assert cdef.cdef_frame_kernel.launches == 0
     assert False in calls and True in calls
@@ -320,15 +408,14 @@ def test_the_route_refuses_a_strength_outside_the_ladder():
     """CardCdef reads searches from the LADDER table: a quadruple the
     table does not hold raises, it is never filtered on the side."""
     planes, srcs, skip = _frame(176, 144, 8, "none", 5)
-    route = CpuCardCdef(native, torch.device("cpu"), srcs)
-    assert route.cdef_run(planes, srcs, skip, 176, 144, 8, 3,
-                          (7, 2, 0, 0), False, sample=4) == \
+    route = CpuCardCdef(torch.device("cpu"))
+    frame = route.frame(planes, srcs, skip, 176, 144, 8, 3)
+    assert frame((7, 2, 0, 0), False, sample=4) == \
         native.cdef_run(planes, srcs, skip, 176, 144, 8, 3, (7, 2, 0, 0),
                         False, sample=4)
     with pytest.raises(KeyError):
-        route.cdef_run(planes, srcs, skip, 176, 144, 8, 3, (3, 0, 0, 0),
-                       False, sample=4)
-    assert route.dlf_apply is native.dlf_apply
+        frame((3, 0, 0, 0), False, sample=4)
+    assert not hasattr(route, "dlf_apply")      # no stand-in for native
 
 
 def test_kernel_wrapper_counts_only_launches():
@@ -435,13 +522,22 @@ def test_kernel_rejects_bad_inputs(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("path", ["ld", "ra"])
-def test_cuda_encode_equals_the_cpu_encode(cuda_device, path):
+@pytest.mark.parametrize("path", ["ld", "ra", "allintra"])
+def test_cuda_encode_equals_the_cpu_encode(cuda_device, monkeypatch, path):
     """352x288 encodes on cuda give the CPU's bytes and recon, with the
-    frame's CDEF launched on the card."""
+    frame's CDEF launched on the card through two CardCdef built once for
+    the encoder's life (the filter thread's on a stream of its own), never
+    one per frame."""
     make, n = ENCODES[path]
     want = _run(make, 352, 288, n)
+    built = []
+    init = cdef.CardCdef.__init__
+    monkeypatch.setattr(cdef.CardCdef, "__init__",
+                        lambda self, *a, **k: built.append(self) or
+                        init(self, *a, **k))
     cdef.cdef_frame_kernel.launches = 0
     got = _run(make, 352, 288, n, device="cuda")
     assert cdef.cdef_frame_kernel.launches > 0
+    assert len(built) == 2 and built[0].stream is None and \
+        built[1].stream is not None
     _same(got, want)

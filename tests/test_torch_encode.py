@@ -112,6 +112,65 @@ def test_port_encode_matches_jax_10bit(pallas_route):
         assert np.array_equal(d.y, o.recon_y)
 
 
+AI_CFG = EncoderConfig(enc_mode=12, qp=35, intra_period_length=0)
+
+
+@pytest.mark.parametrize("bd", [8, 10])
+def test_allintra_encode_matches_jax(default_route, bd):
+    """All-intra at preset 12: every frame a key, its filters searched on
+    frames 0 and 8 and deferred to the filter thread on the others. The
+    payloads and the recon are the JAX package's, byte for byte."""
+    w, h = 176, 144
+    frames = _frames(w, h, n=10, bd=bd)
+    want = _encode(ref_api.Encoder(ref_cfg(AI_CFG), w, h, bit_depth=bd),
+                   frames)
+    got = _encode(Encoder(AI_CFG, w, h, bit_depth=bd, device="cpu"), frames)
+    assert [o.payload for o in got] == [o.payload for o in want]
+    for g, o in zip(got, want):
+        for plane in ("recon_y", "recon_u", "recon_v"):
+            assert np.array_equal(getattr(g, plane), getattr(o, plane))
+
+
+@pytest.mark.parametrize("structure", ["ld", "ra"])
+def test_one_tile_column_two_tile_rows_decode_to_the_recon(default_route,
+                                                           structure):
+    """--tile-columns 0 --tile-rows 1: a single tile column of two tile
+    rows. Every frame's tile group carries both tiles (a lone tile only
+    when the frame has one), so libaom decodes the stream to the recon,
+    frame for frame."""
+    from svt_av1_psy_tpu_torch.decoder.aom import decode_obus as aom_decode
+    w, h, n = 176, 144, 5
+    frames = _frames(w, h, n=n)
+    if structure == "ld":
+        enc = Encoder(LD_CFG.replace(tile_columns=0, tile_rows=1), w, h,
+                      device="cpu")
+        assert (enc._enc.n_tiles, enc._enc.n_tile_rows) == (1, 2)
+        outs = _encode(enc, frames)
+        shown = [(o.payload, (o.recon_y, o.recon_u, o.recon_v))
+                 for o in outs]
+    else:
+        cfg = EncoderConfig(enc_mode=10, qp=30, hierarchical_levels=2,
+                            intra_period_length=-1, tile_columns=0,
+                            tile_rows=1)
+        enc = Encoder(cfg, w, h, device="cpu")
+        assert (enc._enc.n_tiles, enc._enc.n_tile_rows) == (1, 2)
+        try:
+            pkts = [p for f in frames for p in enc.send_picture(*f)]
+            pkts += enc.flush()
+        finally:
+            enc.close()
+        shown = [(p.payload, tuple(p.recon)) for p in pkts
+                 if p.display_idx >= 0]
+        assert [p.display_idx for p in pkts if p.display_idx >= 0] == \
+            list(range(n))
+        outs = pkts
+    decoded = aom_decode([o.payload for o in outs])
+    assert len(decoded) == len(shown) == n
+    for d, (_, recon) in zip(decoded, shown):
+        for plane, rec in zip((d.y, d.u, d.v), recon):
+            assert np.array_equal(plane, np.asarray(rec))
+
+
 @pytest.mark.parametrize("bd", [8, 10])
 def test_k1_route_hands_planes_in_their_pixel_width(pallas_route,
                                                     monkeypatch, bd):
@@ -310,8 +369,8 @@ def test_unported_methods_raise():
     uv = np.full((32, 32), 128, np.uint8)
     assert enc._encode_key_sc(y, uv, uv).payload == \
         ref._encode_key_sc(y, uv, uv).payload
-    for e in (enc, ref):
-        e._lr_apply_and_search(y, uv, uv, 120, None, None)
+    enc._lr_search((enc._rec_y, enc._rec_u, enc._rec_v), (y, uv, uv), 120)
+    ref._lr_apply_and_search(y, uv, uv, 120, None, None)
     assert enc._lr_pending[0] == "dev"
     got, want = enc._take_lr_pending(), ref._take_lr_pending()
     assert (got is None) == (want is None)
@@ -319,14 +378,18 @@ def test_unported_methods_raise():
         assert got.lr_type == want.lr_type and got.units == want.units
 
 
-def _outside_device_block(source):
-    """Source lines of _encode_p outside the low-delay branch of its
-    device-search block, blank lines, the reference's jax imports and the
-    port's tracing (without_trace_lines) dropped."""
-    lines = without_trace_lines(
+def _lines(source):
+    """A method's source lines without blank ones, the reference's jax
+    imports and the port's tracing (without_trace_lines)."""
+    return without_trace_lines(
         [ln for ln in source.split("\n")
          if ln.strip() and ln.strip() not in ("import jax",
                                               "import jax.numpy as jnp")])
+
+
+def _outside_device_block(lines):
+    """_encode_p's lines outside the low-delay branch of its device-search
+    block."""
     i = next(i for i, ln in enumerate(lines)
              if 'with _tstage("device_search"):' in ln)
     i0 = next(j for j in range(i, len(lines)) if lines[j].strip() == "else:")
@@ -335,48 +398,48 @@ def _outside_device_block(source):
     return lines[:i0] + lines[i1:]
 
 
+# the statements of each walk that the port's tile runner, tile-group
+# assembly and filter stage (models/frame_tail.py) replace: cut from both
+# sides between two lines they share, named by how they start
+TAIL_CUTS = {
+    "_encode_key": [("return ec.done()", "# frame-end context save"),
+                    ("self.seq.film_grain_params_present",
+                     "if self.hierarchical_levels > 0 or")],
+    "_encode_p": [("return ec.done(), grid_exp", "# a deferred leaf filter"),
+                  ('with _tstage("inter_commit_walk")', "tile_bytes = "),
+                  ("7, is_intra=False)", "self._fc_saved = tile_fcs[0]")]}
+
+
+def _without_tail(lines, name):
+    for after, before in TAIL_CUTS[name]:
+        i0 = next(i for i, ln in enumerate(lines)
+                  if ln.strip().startswith(after))
+        i1 = next(i for i in range(i0 + 1, len(lines))
+                  if lines[i].strip().startswith(before))
+        lines = lines[:i0 + 1] + lines[i1:]
+    return lines
+
+
 def test_encode_p_copy_has_not_drifted():
-    ref = _outside_device_block(
-        inspect.getsource(ref_fi.FastIntraEncoder._encode_p))
-    port = _outside_device_block(
-        reference_source(port_fi.FastIntraEncoder._encode_p))
+    ref = _without_tail(_outside_device_block(_lines(
+        inspect.getsource(ref_fi.FastIntraEncoder._encode_p))), "_encode_p")
+    port = _without_tail(_outside_device_block(_lines(
+        reference_source(port_fi.FastIntraEncoder._encode_p))), "_encode_p")
     assert len(ref) > 400
     assert port == ref
 
 
-def _without_native(source: str) -> str:
-    """A method's source without its statements `native = ...` (the
-    reference's `self._native`, the port's `self._cdef_native(...)`, which
-    routes the frame's CDEF to the card on a CUDA device)."""
-    tree = ast.parse(textwrap.dedent(source))
-    fn = tree.body[0]
-    fn.body = [s for s in fn.body
-               if not (isinstance(s, ast.Assign) and
-                       [ast.unparse(t) for t in s.targets] == ["native"])]
-    return ast.unparse(tree)
-
-
-ROUTED = {"_search_apply_cdef": "native = self._cdef_native(yp, up, vp)",
-          "_deferred_filter_task":
-          "native = self._cdef_native(yp, up, vp, side=True)"}
-
-
-@pytest.mark.parametrize("name", ["_encode_key", "_search_apply_cdef",
-                                  "_deferred_filter_task",
-                                  "_pick_and_apply_dlf", "_take_decide"])
+@pytest.mark.parametrize("name", ["_encode_key", "_take_decide"])
 def test_traced_copy_has_not_drifted(name):
     """The copied methods that the port only traces are the reference's
-    statement for statement once the tracing is taken out, and traced. The
-    two that run CDEF take their native layer from _cdef_native in place
-    of the reference's self._native (first, before the sources are
-    widened), and are otherwise the same."""
+    statement for statement once the tracing is taken out, and traced;
+    _encode_key's statements that the port's tile runner, tile-group
+    assembly and filter stage replace (TAIL_CUTS) are left out."""
     ref = inspect.getsource(getattr(ref_fi.FastIntraEncoder, name))
     port = reference_source(getattr(port_fi.FastIntraEncoder, name))
-    if name in ROUTED:
-        assert "native = self._native" in ref
-        assert port.count("native = ") == 1 and ROUTED[name] in port
-        assert without_trace(_without_native(port)) == \
-            without_trace(_without_native(ref))
+    if name in TAIL_CUTS:
+        assert _without_tail(_lines(port), name) == \
+            _without_tail(_lines(ref), name)
     else:
         assert without_trace(port) == without_trace(ref)
     assert without_trace(port) != ast.dump(ast.parse(textwrap.dedent(port)))

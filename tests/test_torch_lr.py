@@ -9,18 +9,15 @@ count of differing taps is printed. Per-unit SSEs are held to relative
 1e-6 on every plane whose taps match, and the decisions of the
 reference's finish must be equal. Whole encodes at 176x144 and 352x288
 give the JAX package's payload bytes (no tap differs on these clips) and
-decode dav1d-exactly. The copied _lr_apply_and_search is guarded against
-drift.
+decode dav1d-exactly. The reference's _lr_apply_and_search and the LR step
+of the port's filter stage agree on the same planes.
 
 JAX is imported inside the helpers, so that the CUDA tests of this file
 also run where JAX is not installed (``--noconftest -m cuda``).
 """
 
-import ast
-import inspect
 import pathlib
 import sys
-import textwrap
 
 import numpy as np
 import pytest
@@ -33,7 +30,7 @@ from svt_av1_psy_tpu.models import lr_search as ref_lr
 from svt_av1_psy_tpu_torch.api import Encoder, EncoderConfig, PredStructure
 from svt_av1_psy_tpu_torch.models import fast_intra as port_fi
 from svt_av1_psy_tpu_torch.models import lr_search as port_lr
-from test_torch_standalone import ref_cfg, reference_source
+from test_torch_standalone import ref_cfg
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT / "tools"))
@@ -222,21 +219,38 @@ def test_preset6_encode_matches_jax(lr_decisions, name, dims, n):
 
 
 def test_lr_apply_and_search_copy_has_not_drifted():
-    """The port's _lr_apply_and_search is the reference's but for the
-    device it builds DeviceLrSearch on."""
-    def body(fn, source):
-        tree = ast.parse(textwrap.dedent(source(fn))).body[0]
-        for node in ast.walk(tree):
-            if isinstance(node, ast.Call):
-                node.keywords = [k for k in node.keywords
-                                 if k.arg != "device"]
-        return [ast.dump(s) for s in tree.body[1:]]         # no docstring
+    """The reference's _lr_apply_and_search is the LR step of the port's
+    filter stage (models/frame_tail.py _filter_planes: the search for the
+    next frame dispatched on the post-CDEF planes, then this frame's
+    parameters applied from the pre-CDEF copy). On the same recon and
+    sources both take the same decision, apply it to the same planes, and
+    leave the same decision pending."""
+    w, h, q = 176, 144, 120
+    src, rec = _planes("noise", w, h, 8)
+    port = port_fi.FastIntraEncoder(w, h, qindex=q, device="cpu")
+    ref = ref_fi.FastIntraEncoder(w, h, qindex=q)
+    port.enable_lr, port.enable_dlf, port.enable_cdef = True, False, False
+    for e in (port, ref):
+        for buf, p in zip((e._rec_y, e._rec_u, e._rec_v), rec):
+            buf[:p.shape[0], :p.shape[1]] = p
 
-    ref = body(ref_fi.FastIntraEncoder._lr_apply_and_search,
-               inspect.getsource)
-    port = body(port_fi.FastIntraEncoder._lr_apply_and_search,
-                reference_source)
-    assert len(ref) > 10 and port == ref
+    def lr_step(lr_dec_port, lr_dec_ref):
+        port._filter_planes(
+            (port._rec_y, port._rec_u, port._rec_v),
+            (port._lf_y, port._lf_uv, port._lf_uv), port._skip_map, src, q,
+            None, None, lr_dec_port, port._cdef_route, inline=True)
+        pre = (ref._rec_y.copy(), ref._rec_u.copy(), ref._rec_v.copy())
+        ref._lr_apply_and_search(*src, q, lr_dec_ref, pre)
+        return port._take_lr_pending(), ref._take_lr_pending()
+
+    got, want = lr_step(None, None)
+    assert got is not None and _same_decision(got, want)
+    got, want = lr_step(got, want)
+    assert _same_decision(got, want)
+    for a, b in zip((port._rec_y, port._rec_u, port._rec_v),
+                    (ref._rec_y, ref._rec_u, ref._rec_v)):
+        assert np.array_equal(a, b)
+    assert not np.array_equal(port._rec_y[:h, :w], rec[0][:h, :w])
 
 
 @pytest.mark.cuda

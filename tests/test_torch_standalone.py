@@ -65,8 +65,9 @@ PORTED = {
         "FastIntraEncoder._take_decide",
         "FastIntraEncoder._encode_key", "FastIntraEncoder._encode_p",
         "FastIntraEncoder._encode_key_sc",
-        "FastIntraEncoder._lr_apply_and_search",
-        "FastIntraEncoder._cdef_native",
+        # the post-walk tail is the port's own (models/frame_tail.py), a
+        # base of the class: the reference's four tail methods are gone
+        "FastIntraEncoder", "FastIntraEncoder._lr_apply_and_search",
         "FastIntraEncoder._search_apply_cdef",
         "FastIntraEncoder._deferred_filter_task",
         "FastIntraEncoder._pick_and_apply_dlf"},
